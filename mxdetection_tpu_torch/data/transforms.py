@@ -90,13 +90,17 @@ def transform_gt(boxes: torch.Tensor, scale: torch.Tensor, flip: torch.Tensor,
 
 def batch_transform(raw: torch.Tensor, hw: torch.Tensor, flip: torch.Tensor,
                     gt_boxes: torch.Tensor, *, out_hw: tuple[int, int], scale_size: int,
-                    max_size: int, mean: tuple, std: tuple, dtype=torch.bfloat16) -> dict:
+                    max_size: int, mean: tuple, std: tuple, dtype=torch.bfloat16,
+                    scale_sizes: torch.Tensor | None = None) -> dict:
     """Fused per-batch transform -> dict(images, gt_boxes, im_info).
 
-    im_info rows are (orig_h, orig_w, scale). The JAX version's per-image
-    ``scale_sizes`` (multi-scale training) comes with the training slice.
+    im_info rows are (orig_h, orig_w, scale). ``scale_sizes`` (B,) gives each
+    image its own short-side target (multi-scale training); by default every
+    image takes ``scale_size``.
     """
-    scale_sizes = torch.full(raw.shape[:1], float(scale_size), device=raw.device)
+    if scale_sizes is None:
+        scale_sizes = torch.full(raw.shape[:1], float(scale_size), device=raw.device)
+    scale_sizes = scale_sizes.float()
     imgs, scale = fused_image_transform(
         raw, hw, flip, out_hw=out_hw, scale_size=scale_sizes, max_size=max_size,
         mean=mean, std=std, dtype=dtype)

@@ -3,7 +3,16 @@
 v1b: the stride of a downsampling bottleneck sits on its 3x3 conv. The stem
 is the plain 7x7/2 conv + 3x3/2 max-pool; the JAX package's opt-in
 space-to-depth stem is a TPU measure and is not ported. Deformable stages
-are ROADMAP Queue 1 item 13. Frozen stages need nothing at inference.
+are ROADMAP Queue 1 item 13.
+
+Frozen stages: the activations are detached exactly where the JAX module
+puts ``stop_gradient``, after the stem's ReLU (when ``frozen_stages >= 0``)
+and after every stage up to ``frozen_stages`` (so with the default 1, C2
+itself is detached). The frozen weights stay parameters and get no
+gradient; the trainer still decays them, as optax does in the reference.
+The JAX module's ``train`` flag only switches SyncBN to batch statistics;
+FrozenBN, the one norm ported, is the same in training and evaluation, so
+this module has no such flag until SyncBN comes (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -14,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import FrozenBatchNorm, conv, init_layer_
+from ..layers import Conv2d, FrozenBatchNorm, conv, init_layer_
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -51,9 +60,9 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """(B, H, W, 3) NHWC image -> (C2, C3, C4, C5) NHWC maps at strides 4..32."""
 
-    def __init__(self, depth: int = 50, norm_kind: str = "frozen_bn",
+    def __init__(self, depth: int = 50, norm_kind: str = "frozen_bn", frozen_stages: int = 1,
                  dcn_stages: Sequence[bool] = (False, False, False, False),
-                 s2d_stem: bool = False, dilated_c5: bool = False):
+                 s2d_stem: bool = False, dilated_c5: bool = False, remat: bool = False):
         super().__init__()
         if norm_kind != "frozen_bn":
             raise NotImplementedError(f"backbone norm {norm_kind!r} is not ported yet "
@@ -65,7 +74,10 @@ class ResNet(nn.Module):
             raise NotImplementedError("the space-to-depth stem is a TPU measure and is not ported")
         if dilated_c5:
             raise NotImplementedError("dilated C5 is not ported yet (ROADMAP Queue 1 item 14: R-FCN)")
-        self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        if remat:
+            raise NotImplementedError("backbone.remat is not ported yet (ROADMAP Queue 1 item 10)")
+        self.frozen_stages = frozen_stages
+        self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = FrozenBatchNorm(64)
         in_ch = 64
         self.block_names = []
@@ -104,10 +116,14 @@ class ResNet(nn.Module):
     def forward(self, images: torch.Tensor) -> tuple:
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory == channels_last
         x = F.relu(self.stem_bn(self.stem_conv(x)))
+        if self.frozen_stages >= 0:
+            x = x.detach()
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf, as flax does
         outs = []
-        for names in self.block_names:
+        for stage, names in enumerate(self.block_names):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage + 1 <= self.frozen_stages:
+                x = x.detach()
             outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)

@@ -12,17 +12,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import init_layer_
+from ..layers import Linear, init_layer_
 
 
 class BBoxHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int = 80, fc_channels: int = 1024,
                  class_agnostic: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, fc_channels)
-        self.fc2 = nn.Linear(fc_channels, fc_channels)
-        self.cls_score = nn.Linear(fc_channels, num_classes + 1)
-        self.bbox_pred = nn.Linear(fc_channels, 4 if class_agnostic else 4 * (num_classes + 1))
+        self.fc1 = Linear(in_features, fc_channels)
+        self.fc2 = Linear(fc_channels, fc_channels)
+        self.cls_score = Linear(fc_channels, num_classes + 1)
+        self.bbox_pred = Linear(fc_channels, 4 if class_agnostic else 4 * (num_classes + 1))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         init_layer_(self.fc1, "xavier", gen)

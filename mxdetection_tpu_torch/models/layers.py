@@ -4,6 +4,11 @@ Modules of the port take and return NCHW tensors in ``channels_last`` memory
 inside the network (so every NHWC view is contiguous for free); the public
 detector functions keep the JAX package's NHWC layout.
 
+Parameters are cast to the input's dtype when read (``Conv2d``, ``Linear``,
+``FrozenBatchNorm``), as flax's ``param_dtype=float32, dtype=bfloat16``
+does: a training model keeps f32 master weights and computes in the
+config's dtype, and the gradients reach the f32 weights through the cast.
+
 Seeded initialisers mirror flax's: ``he_normal`` (truncated normal, fan-in,
 scale 2), ``xavier_uniform`` and ``normal(std)``, drawn from a
 ``torch.Generator``. The two frameworks give different numbers from one seed.
@@ -14,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # flax's truncated-normal initialisers divide the std by the std of a
@@ -25,7 +31,8 @@ class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics AND frozen affine params:
     ``y = x * scale + bias`` from stored (gamma, beta, mean, var) buffers.
     scale/bias are computed in f32 and cast to the input dtype before the
-    multiply-add, as the JAX module does."""
+    multiply-add, as the JAX module does, so the output keeps the input's
+    dtype: an f32 scale would promote bf16 activations to f32."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -42,12 +49,28 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (weights cast on read)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (weights cast on read)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 def conv(in_channels: int, features: int, kernel: int = 3, stride: int = 1, *,
-         dilation: int = 1, use_bias: bool = False) -> nn.Conv2d:
+         dilation: int = 1, use_bias: bool = False) -> Conv2d:
     """Conv with the JAX helper's symmetric padding ``dilation * (kernel // 2)``
     and no bias by default."""
-    return nn.Conv2d(in_channels, features, kernel, stride=stride,
-                     padding=dilation * (kernel // 2), dilation=dilation, bias=use_bias)
+    return Conv2d(in_channels, features, kernel, stride=stride,
+                  padding=dilation * (kernel // 2), dilation=dilation, bias=use_bias)
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Box geometry ops: IoU, decode, clipping — port of ``mxdetection_tpu.ops.boxes``.
+"""Box geometry ops: IoU, encode/decode, clipping — port of ``mxdetection_tpu.ops.boxes``.
 
 All boxes are ``(..., 4)`` float tensors in ``(x1, y1, x2, y2)`` corner
 layout. Invalid/padding boxes are conventionally all-zero rows; IoU against
@@ -36,6 +36,50 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     union = area1[..., :, None] + area2[..., None, :] - inter
     iou = inter / union.clamp(min=1e-12)
     return torch.where(union > 0, iou, torch.zeros_like(iou))
+
+
+def pairwise_iof(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                 offset: float = LEGACY_OFFSET) -> torch.Tensor:
+    """Intersection over the area of ``boxes1``: (..., N, 4) x (..., K, 4) -> (..., N, K)."""
+    area1 = box_area(boxes1, offset)[..., :, None]
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt + offset).clamp(min=0.0)
+    iof = wh[..., 0] * wh[..., 1] / area1.clamp(min=1e-12)
+    return torch.where(area1 > 0, iof, torch.zeros_like(iof))
+
+
+def encode_boxes(
+    rois: torch.Tensor,
+    gt: torch.Tensor,
+    means: tuple = (0.0, 0.0, 0.0, 0.0),
+    stds: tuple = (1.0, 1.0, 1.0, 1.0),
+    offset: float = LEGACY_OFFSET,
+) -> torch.Tensor:
+    """xyxy (rois, matched gt) -> normalised (dx, dy, dw, dh) deltas, the
+    inverse of ``decode_boxes``. Shapes broadcast; the last dim is 4.
+    Widths and heights are clamped at 1e-6, as the JAX function does."""
+    ex_w = rois[..., 2] - rois[..., 0] + offset
+    ex_h = rois[..., 3] - rois[..., 1] + offset
+    ex_cx = rois[..., 0] + 0.5 * ex_w
+    ex_cy = rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt[..., 2] - gt[..., 0] + offset
+    gt_h = gt[..., 3] - gt[..., 1] + offset
+    gt_cx = gt[..., 0] + 0.5 * gt_w
+    gt_cy = gt[..., 1] + 0.5 * gt_h
+
+    ex_w = ex_w.clamp(min=1e-6)
+    ex_h = ex_h.clamp(min=1e-6)
+    dx = (gt_cx - ex_cx) / ex_w
+    dy = (gt_cy - ex_cy) / ex_h
+    dw = torch.log(gt_w.clamp(min=1e-6) / ex_w)
+    dh = torch.log(gt_h.clamp(min=1e-6) / ex_h)
+
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    means_t = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds_t = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means_t) / stds_t
 
 
 def decode_boxes(

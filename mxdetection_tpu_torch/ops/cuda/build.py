@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) for Hopper.
 
-``nvcc`` compiles every source of ``csrc/`` into one shared library with a
-plain C interface, ``_build/libmxdet_kernels_<hash>.so`` inside the package,
-at first use; the hash covers the sources and the flags, so an edit rebuilds
-and an unchanged tree reuses the library. The library is loaded with
-``ctypes``; nothing includes PyTorch's headers, which keeps a build to
+``nvcc`` compiles every source of ``csrc/`` into an object, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, ``_build/libmxdet_kernels_<hash>.so`` inside the
+package, at first use; the hash covers the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the library. The library is loaded
+with ``ctypes``; nothing includes PyTorch's headers, which keeps a build to
 seconds. Nothing here runs at import time.
 
 Run ``python -m mxdetection_tpu_torch.ops.cuda.build`` to build and print
@@ -25,8 +26,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class LaunchCount:
@@ -78,16 +79,33 @@ def build() -> tuple[str, float, str]:
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
     t0 = time.perf_counter()
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    report = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
+    for obj in objs:
+        os.remove(obj)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, secs, res.stdout + res.stderr
+    return path, time.perf_counter() - t0, "".join(report) + res.stdout + res.stderr
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,11 +113,15 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures."""
     path, _, _ = build()
     lib = ctypes.CDLL(path)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.mxdet_roi_align_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, p]
-    lib.mxdet_roi_align_fwd.restype = i
+    lib.mxdet_roi_align_bwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, p]
+    lib.mxdet_f32_to_bf16.argtypes = [p, p, ll, p]
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
-    lib.mxdet_nms_mask_sorted.restype = i
+    lib.mxdet_pairwise_iou.argtypes = [p, ll, p, i, i, i, p, p]
+    for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_f32_to_bf16,
+               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou):
+        fn.restype = i
     return lib
 
 

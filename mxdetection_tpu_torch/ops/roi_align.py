@@ -2,10 +2,12 @@
 
 ``multilevel_roi_align`` dispatches on the device of its inputs: CPU tensors
 take ``multilevel_roi_align_plain`` (the flat-buffer gather of the JAX
-reference), CUDA tensors take the hand-written kernel in
-``ops/cuda/roi_align.py``; any other device raises. The FPN level of each
-roi is computed here, once, by ``fpn_level_assign``, and handed to either
-path, so the two never disagree about a roi that sits on a level boundary.
+reference), differentiated by torch autograd; CUDA tensors take an
+``autograd.Function`` whose forward is the hand-written kernel K1 and whose
+backward is K3 (+ its convert K3b), in ``ops/cuda/roi_align.py``; any other
+device raises. The FPN level of each roi is computed here, once, by
+``fpn_level_assign``, and handed to either path, so the two never disagree
+about a roi that sits on a level boundary.
 
 Semantics are torchvision/Detectron2 ``aligned=False`` RoIAlign: each of the
 P x P bins averages ``sampling_ratio**2`` bilinear samples; samples within
@@ -138,11 +140,39 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     """
     levels = roi_levels(rois, len(features), min_level=min_level,
                         canonical_scale=canonical_scale, canonical_level=canonical_level)
-    kw = dict(output_size=output_size, sampling_ratio=sampling_ratio, roi_valid=roi_valid)
     if rois.device.type == "cpu":
-        return multilevel_roi_align_plain(features, rois, strides, levels, **kw)
+        return multilevel_roi_align_plain(features, rois, strides, levels,
+                                          output_size=output_size,
+                                          sampling_ratio=sampling_ratio, roi_valid=roi_valid)
     if rois.device.type == "cuda":
+        if roi_valid is None:
+            roi_valid = torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device)
+        return _RoIAlignCuda.apply(rois, levels, roi_valid, tuple(strides), output_size,
+                                   sampling_ratio, *features)
+    raise RuntimeError(f"multilevel_roi_align: no implementation for device {rois.device}")
+
+
+class _RoIAlignCuda(torch.autograd.Function):
+    """K1 forward, K3 (+ K3b) backward. The gradient flows to the features
+    only: rois and ``roi_valid`` get none, as in the JAX package's
+    ``make_trainable_roi_align``."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, roi_valid, strides, output_size, sampling_ratio, *features):
         from .cuda.roi_align import roi_align_cuda
 
-        return roi_align_cuda(features, rois, strides, levels, **kw)
-    raise RuntimeError(f"multilevel_roi_align: no implementation for device {rois.device}")
+        ctx.save_for_backward(rois, levels, roi_valid)
+        ctx.shapes = [tuple(f.shape[1:3]) for f in features]
+        ctx.strides, ctx.sampling_ratio, ctx.dtype = strides, sampling_ratio, features[0].dtype
+        return roi_align_cuda(list(features), rois, strides, levels, output_size=output_size,
+                              sampling_ratio=sampling_ratio, roi_valid=roi_valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from .cuda.roi_align import roi_align_bwd_cuda
+
+        rois, levels, roi_valid = ctx.saved_tensors
+        grads = roi_align_bwd_cuda(grad_out, ctx.shapes, rois, ctx.strides, levels,
+                                   sampling_ratio=ctx.sampling_ratio, roi_valid=roi_valid,
+                                   out_dtype=ctx.dtype)
+        return (None,) * 6 + tuple(grads)

@@ -12,6 +12,10 @@ at ``backbone.layer1_block0.conv1.weight``:
   both frameworks, so its rows need no permutation;
 - FrozenBN ``gamma/beta/mean/var`` (``batch_stats``) -> buffers of the same
   names.
+
+The flax train-mode and eval-mode detectors share one variable tree, so the
+same conversion loads a training model (``build_detector(train=True)``,
+f32 master weights) and an eval model (weights cast to its compute dtype).
 """
 
 from __future__ import annotations

@@ -202,7 +202,7 @@ def test_detector_reproduces_jax_fixture():
           "gt_valid": jnp.zeros((1, 8), bool)}
     variables = jax.device_get(jax.jit(jb.init)(jax.random.PRNGKey(7), tb))
 
-    model = load_flax_variables(build_detector(cfg), variables)
+    model = load_flax_variables(build_detector(cfg, device="cpu"), variables)
     out = model.forward_test(T(images), T(im_info))
     dets = rcnn_postprocess(out, cfg, HW, T(im_info))
 
@@ -220,29 +220,32 @@ def test_detector_reproduces_jax_fixture():
 def test_build_detector_rejects_unported():
     for name in ("mask_rcnn_r50_fpn_1x", "retinanet_r50_fpn_1x", "cascade_rcnn_r101_dcn_1x"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")))
+            build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")), device="cpu")
 
 
 def test_port_runs_without_jax():
-    """The port imports and runs a tiny seeded forward with jax and flax
-    blocked: the card's machine has neither."""
+    """The port imports and runs a tiny seeded forward and one training
+    step with jax, flax, optax and the JAX package blocked: the card's
+    machine has no jax, and the port keeps its own configs."""
     script = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["flax"] = None
+        for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
+            sys.modules[blocked] = None
         import torch
         from mxdetection_tpu_torch.config import load_config
         from mxdetection_tpu_torch.data.transforms import batch_transform
         from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
         from mxdetection_tpu_torch.models.registry import build_detector
-        from mxdetection_tpu_torch.ops.cuda import build, nms, roi_align
+        from mxdetection_tpu_torch.ops.cuda import build, iou, nms, roi_align
+        from mxdetection_tpu_torch.train.trainer import Trainer
         from mxdetection_tpu_torch.utils import convert
 
         cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**{
             "data.pad_h": 128, "data.pad_w": 160, "data.scale": 120, "data.max_size": 160,
             "backbone.dtype": "float32", "rpn.pre_nms_top_n_test": 100,
             "rpn.post_nms_top_n_test": 50, "test.pre_nms_per_class": 100,
-            "test.max_per_image": 10})
+            "test.max_per_image": 10, "rpn.pre_nms_top_n_train": 100,
+            "rpn.post_nms_top_n_train": 50, "bbox_head.num_samples": 16})
         d = cfg.data
         g = torch.Generator().manual_seed(0)
         raw = torch.randint(0, 256, (2, 100, 150, 3), generator=g, dtype=torch.uint8)
@@ -251,14 +254,22 @@ def test_port_runs_without_jax():
                              out_hw=(d.pad_h, d.pad_w), scale_size=d.scale,
                              max_size=d.max_size, mean=d.mean, std=d.std,
                              dtype=torch.float32)
-        model = build_detector(cfg, seed=0)
+        model = build_detector(cfg, device="cpu", seed=0)
         dets = rcnn_postprocess(model.forward_test(tb["images"], tb["im_info"]), cfg,
                                 (d.pad_h, d.pad_w), tb["im_info"])
         assert torch.isfinite(dets["boxes"]).all()
         assert int(dets["valid"].sum()) > 0
-        assert roi_align.launch_count.n == 0 and nms.launch_count.n == 0
-        assert not any(m == "jax" or m.startswith(("jax.", "flax")) for m in sys.modules
-                       if sys.modules[m] is not None)
+        gtb = torch.tensor([[[10.0, 10.0, 60.0, 50.0]] * 3] * 2)
+        m = Trainer(cfg, device="cpu", seed=0).run_step({
+            "raw": raw, "hw": hw, "flip": torch.tensor([False, True]), "gt_boxes": gtb,
+            "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
+            "gt_valid": torch.tensor([[True, False, False]] * 2)})
+        assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        counts = (roi_align.launch_count, roi_align.bwd_launch_count, nms.launch_count,
+                  iou.launch_count)
+        assert all(c.n == 0 for c in counts)
+        assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu")
+                       for m in sys.modules if sys.modules[m] is not None)
         print("ok", int(dets["valid"].sum()))
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
@@ -279,15 +290,13 @@ def imported_modules(path):
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "mxdetection_tpu_torch"])
 def test_imports_stay_in_the_port(path):
-    """``chip_smoke.py`` names no module of jax, flax or the JAX package;
-    in the port only ``config.py`` reaches the JAX package's config."""
+    """Neither ``chip_smoke.py`` nor any module of the port names jax, flax,
+    optax or any module of the JAX package: the port keeps its own copies."""
     root = os.path.join(REPO, path)
     files = ([root] if root.endswith(".py") else
              [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")])
-    allowed = {os.path.join(REPO, "mxdetection_tpu_torch/config.py"): {"mxdetection_tpu.config"}}
+    assert len(files) > 1 or path.endswith(".py")
     for f in files:
         for mod in imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax"), (f, mod)
-            if top == "mxdetection_tpu":
-                assert mod in allowed.get(f, set()), (f, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "mxdetection_tpu"), (f, mod)
