@@ -25,7 +25,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    quartiles, max). K1's and K2's launch counts must rise; outputs must be
    finite with some valid detections; a small f32 input must give the same
    detections on the card (kernels) as on the CPU (plain);
-7. drives the training path at full width: ``Trainer.run_step`` of the
+7. holds the deformable-conv kernel (K5 at stride 1, K5b at stride 2)
+   against its plain version at the six DCN layer shapes of Cascade
+   R101-DCN at 8x832x1344 (offsets of std 1.5 cells): f32 within 1e-4 of
+   the largest output, bf16 within two bf16 roundings; also with
+   ``radius=3``, at dilation 2, and with zero offsets against ``F.conv2d``;
+   times the kernel, its plain version and cuDNN's ``F.conv2d`` of the same
+   shape (which computes the same function only at zero offsets);
+8. drives the Cascade R-CNN R101-DCN inference path at full width (bf16,
+   seeded weights, every offset conv overwritten by seeded noise scaled so
+   the offsets have a std of about 1 cell); a warm-up batch and 20 timed
+   batches as in 6, with the launch counts of K1, K2, K5 and K5b rising and
+   a card-vs-CPU check on a small f32 input;
+9. drives the training path at full width: ``Trainer.run_step`` of the
    same config (f32 master weights, bf16 compute) on 8 uint8 480x640
    canvases with about 7 gt boxes each; 2 warm-up steps and 10 timed steps
    (median ms per step, images/s, peak memory). Loss and grad norm must be
@@ -33,23 +45,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
-8. prints the card's name and power limit, the kernel table as one JSON
+10. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
 exits non-zero at once: there is no CPU fallback.
 
-``python3 chip_smoke.py --profile DIR`` also splits an inference batch and a
-training step into their stages (CUDA events at the module boundaries) and
-traces each with ``torch.profiler``: kernel time by name, the device's idle
-share, and Chrome traces written to ``DIR/main_path_trace.json.gz`` and
+``python3 chip_smoke.py --profile DIR`` also splits an inference batch of
+each detector and a training step into their stages (CUDA events at the
+module boundaries) and traces each with ``torch.profiler``: kernel time by
+name, the device's idle share, and Chrome traces written to
+``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz`` and
 ``DIR/train_step_trace.json.gz``.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
-same work on this run's inputs: the larger of the bytes the function must
-move (each input read once, each output written once) over 3.35 TB/s and
-its operations over 67 TFLOP/s (f32 outside the tensor cores), the H100
-SXM's published peaks.
+same work on this run's inputs: the largest of the bytes the function must
+move (each input read once, each output written once) over 3.35 TB/s, its
+f32 operations over 67 TFLOP/s (outside the tensor cores) and, for the
+deformable conv's bf16 product, its tensor-core operations over 989
+TFLOP/s: the H100 SXM's published peaks.
 """
 
 from __future__ import annotations
@@ -65,12 +79,23 @@ K2_REPLACES = "mxdetection_tpu/ops/pallas/nms.py:29"
 K3_REPLACES = "mxdetection_tpu/ops/pallas/roi_align.py:424"
 K3B_REPLACES = "mxdetection_tpu/ops/pallas/roi_align.py:516"
 K4_REPLACES = "mxdetection_tpu/ops/pallas/iou.py:24"
+K5_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:43"
+K5B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:622"
+CASCADE = "cascade_rcnn_r101_dcn_1x"
 MAIN_BATCH = 8
 TIMED_BATCHES = 20
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 TRAIN_ROIS = 512        # bbox_head.num_samples
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+# The DCN layers of Cascade R101-DCN at 8x832x1344: (stage, input H, W,
+# channels, stride, layers of this shape a batch); Cin = Cout.
+DCN_LAYERS = [
+    ("stage2", 208, 336, 128, 2, 1), ("stage2", 104, 168, 128, 1, 3),
+    ("stage3", 104, 168, 256, 2, 1), ("stage3", 52, 84, 256, 1, 22),
+    ("stage4", 52, 84, 512, 2, 1), ("stage4", 26, 42, 512, 1, 2),
+]
 
 
 def log(msg: str) -> None:
@@ -88,10 +113,12 @@ def gpu_name_and_limit() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") of work moving ``nbytes`` and
-    doing ``flops`` f32 operations on the card's published peaks."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of work moving ``nbytes``, doing
+    ``flops`` f32 operations and ``tc_flops`` bf16 tensor-core operations,
+    on the card's published peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(flops / F32_FLOPS, tc_flops / BF16_TC_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -464,6 +491,40 @@ def check_dets(dets, hw, what: str) -> int:
     return n_valid
 
 
+SMALL_OVERRIDES = {
+    "data.pad_h": 256, "data.pad_w": 320, "data.scale": 240, "data.max_size": 320,
+    "backbone.dtype": "float32", "test.max_per_image": 20,
+    "rpn.pre_nms_top_n_test": 400, "rpn.post_nms_top_n_test": 100,
+    "test.pre_nms_per_class": 200}
+
+
+def small_input():
+    """Two uint8 canvases for the card-vs-CPU checks, and their (h, w)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (2, 240, 300, 3), generator=gen, dtype=torch.uint8)
+    return raw, torch.tensor([[240.0, 300.0], [200.0, 300.0]])
+
+
+def check_parity(cpu, gpu, hw, what: str) -> None:
+    """The card's detections against the CPU port's: same valid and labels,
+    boxes within 1e-2 px and scores within 1e-4."""
+    import torch
+
+    gpu = {k: v.cpu() for k, v in gpu.items()}
+    n = check_dets(gpu, hw, f"{what} on the card")
+    same_valid = torch.equal(cpu["valid"], gpu["valid"])
+    box_err = (cpu["boxes"] - gpu["boxes"]).abs().max().item()
+    score_err = (cpu["scores"] - gpu["scores"]).abs().max().item()
+    same_labels = torch.equal(cpu["labels"], gpu["labels"])
+    log(f"{what} card vs CPU: {n} valid, same valid {same_valid}, same labels "
+        f"{same_labels}, max box err {box_err:.3e}, max score err {score_err:.3e} "
+        "(bound 1e-2 px, 1e-4)")
+    if not (same_valid and same_labels and box_err <= 1e-2 and score_err <= 1e-4):
+        fail(f"{what}: card detections differ from the CPU port's")
+
+
 def small_parity(device) -> None:
     """A 256x320 f32 input through the port on the card (kernels) and on the
     CPU (plain versions, which the CPU tests hold against the JAX package)."""
@@ -474,29 +535,51 @@ def small_parity(device) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**{
-        "data.pad_h": 256, "data.pad_w": 320, "data.scale": 240, "data.max_size": 320,
-        "backbone.dtype": "float32", "test.max_per_image": 20,
-        "rpn.pre_nms_top_n_test": 400, "rpn.post_nms_top_n_test": 100,
-        "test.pre_nms_per_class": 200})
-    gen = torch.Generator().manual_seed(3)
-    raw = torch.randint(0, 256, (2, 240, 300, 3), generator=gen, dtype=torch.uint8)
-    hw = torch.tensor([[240.0, 300.0], [200.0, 300.0]])
+    cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**SMALL_OVERRIDES)
+    raw, hw = small_input()
     dets = {}
     for dev in ("cpu", device):
         model = build_detector(cfg, device="cpu", seed=0).to(dev)
         dets[dev] = detect(model, cfg, raw.to(dev), hw.to(dev), torch.float32)[0]
-    cpu, gpu = dets["cpu"], {k: v.cpu() for k, v in dets[device].items()}
-    n = check_dets(gpu, hw, "small f32 input on the card")
-    same_valid = torch.equal(cpu["valid"], gpu["valid"])
-    box_err = (cpu["boxes"] - gpu["boxes"]).abs().max().item()
-    score_err = (cpu["scores"] - gpu["scores"]).abs().max().item()
-    same_labels = torch.equal(cpu["labels"], gpu["labels"])
-    log(f"small f32 parity card vs CPU: {n} valid, same valid {same_valid}, same labels "
-        f"{same_labels}, max box err {box_err:.3e}, max score err {score_err:.3e} "
-        "(bound 1e-2 px, 1e-4)")
-    if not (same_valid and same_labels and box_err <= 1e-2 and score_err <= 1e-4):
-        fail("small f32 input: card detections differ from the CPU port's")
+    check_parity(dets["cpu"], dets[device], hw, "small f32 input")
+
+
+def drive(model, cfg, raw, hw, dtype, counters, card: str, what: str) -> tuple:
+    """A warm-up batch and ``TIMED_BATCHES`` timed ones of ``model``, every
+    launch count set to 0 just before and read just after; fails if a
+    counted kernel was never launched or the detections are wrong.
+    Returns (launches, dets, outputs, ms per batch)."""
+    import torch
+
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dets, out = detect(model, cfg, raw, hw, dtype)  # warm-up
+    torch.cuda.synchronize()
+    log(f"{what} warm-up batch: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    times = []
+    for _ in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        dets, out = detect(model, cfg, raw, hw, dtype)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.name: c.n for c in counters}
+    n_valid = check_dets({k: v.cpu() for k, v in dets.items()}, hw.cpu(), what)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{what} never launched the {name} kernel")
+    log(f"{what} ms per batch ({card}): " + ", ".join(f"{ms:.2f}" for ms in times))
+    q = torch.tensor(times).quantile(torch.tensor([0.25, 0.5, 0.75])).tolist()
+    log(f"{what}: {TIMED_BATCHES} batches of {MAIN_BATCH}x832x1344 bf16, ms per batch: "
+        f"p25 {q[0]:.2f}, median {q[1]:.2f}, p75 {q[2]:.2f}, max {max(times):.2f}; "
+        f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s ({card})")
+    log(f"{what}: {int(out['roi_valid'].sum())}/{out['roi_valid'].numel()} valid proposals, "
+        f"pyramid max |P| {max(p.abs().max().item() for p in out['pyramid']):.1f}, "
+        f"{n_valid} valid detections in the last batch; launches {launches}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, dets, out, times
 
 
 def phase_main_path(device, card: str, counters, profile_dir: str | None) -> dict:
@@ -517,35 +600,7 @@ def phase_main_path(device, card: str, counters, profile_dir: str | None) -> dic
     raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
                         dtype=torch.uint8).to(device)
     hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
-
-    for c in counters:
-        c.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    dets, out = detect(model, cfg, raw, hw, dtype)  # warm-up
-    torch.cuda.synchronize()
-    log(f"main path warm-up batch: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    times = []
-    for _ in range(TIMED_BATCHES):
-        t0 = time.perf_counter()
-        dets, out = detect(model, cfg, raw, hw, dtype)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {c.name: c.n for c in counters}
-    n_valid = check_dets({k: v.cpu() for k, v in dets.items()}, hw.cpu(), "main path")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"main path never launched the {name} kernel")
-    log(f"main path ms per batch ({card}): " + ", ".join(f"{ms:.2f}" for ms in times))
-    q = torch.tensor(times).quantile(torch.tensor([0.25, 0.5, 0.75])).tolist()
-    log(f"main path: {TIMED_BATCHES} batches of {MAIN_BATCH}x832x1344 bf16, ms per batch: "
-        f"p25 {q[0]:.2f}, median {q[1]:.2f}, p75 {q[2]:.2f}, max {max(times):.2f}; "
-        f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s ({card})")
-    log(f"main path: {int(out['roi_valid'].sum())}/{out['roi_valid'].numel()} valid proposals, "
-        f"pyramid max |P| {max(p.abs().max().item() for p in out['pyramid']):.1f}, "
-        f"{n_valid} valid detections in the last batch; launches {launches}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = drive(model, cfg, raw, hw, dtype, counters, card, "main path")[0]
     if profile_dir is not None:
         phase_profile(model, cfg, raw, hw, dtype, profile_dir)
     return launches
@@ -573,9 +628,15 @@ def stage_breakdown(model, cfg, raw, hw, dtype, reps: int) -> dict:
         model.backbone.register_forward_hook(lambda *_: mark("backbone")),
         model.fpn.register_forward_hook(lambda *_: mark("fpn")),
         model.rpn.register_forward_hook(lambda *_: mark("rpn_head")),
-        model.bbox_head0.register_forward_pre_hook(lambda *_: mark("proposals + roi_align")),
-        model.bbox_head0.register_forward_hook(lambda *_: mark("bbox_head")),
     ]
+    n = model.num_stages
+    for i in range(n):  # a cascade stage: (decode of the last +) RoIAlign, then its head
+        before = "proposals + roi_align" if i == 0 else f"decode{i - 1} + roi_align{i}"
+        after = "bbox_head" if n == 1 else f"bbox_head{i}"
+        hooks += [
+            model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
+            model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
+        ]
     totals = {}
     try:
         for _ in range(reps):
@@ -620,19 +681,275 @@ def trace(run, reps: int, label: str, path: str) -> None:
     log(f"profile {label}: trace written to {path}")
 
 
-def phase_profile(model, cfg, raw, hw, dtype, out_dir: str) -> None:
+def phase_profile(model, cfg, raw, hw, dtype, out_dir: str, label: str = "main_path") -> None:
     import os
 
     stages = stage_breakdown(model, cfg, raw, hw, dtype, reps=5)
     total = sum(stages.values())
     for name, ms in stages.items():
-        log(f"profile stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
-    trace(lambda: detect(model, cfg, raw, hw, dtype), 2, "batch",
-          os.path.join(out_dir, "main_path_trace.json.gz"))
+        log(f"profile {label} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+    trace(lambda: detect(model, cfg, raw, hw, dtype), 2, f"{label} batch",
+          os.path.join(out_dir, f"{label}_trace.json.gz"))
 
 
 # --------------------------------------------------------------------------
-# phase 7: training path
+# phase 7: K5 + K5b
+
+
+def dcn_bound(b: int, h: int, w: int, c: int, stride: int, dtype) -> tuple[float, str]:
+    """x, offsets and W read once, the output written once; the product's
+    2 * M * 9 * C * C operations on the tensor cores (bf16) or the f32
+    units, and the blend's 7 f32 operations per sampled value."""
+    import torch
+
+    ho, wo = -(-h // stride), -(-w // stride)
+    m = b * ho * wo
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = b * h * w * c * size + m * 18 * 4 + 9 * c * c * size + m * c * size
+    gemm, blend = 2.0 * m * 9 * c * c, 7.0 * m * 9 * c
+    if dtype == torch.bfloat16:
+        return bound(nbytes, blend, gemm)
+    return bound(nbytes, blend + gemm)
+
+
+def sample_stats(offsets, h: int, w: int, stride: int, dilation: int) -> dict:
+    """Of offsets (B, Ho, Wo, 18): the counts of values, of values beyond
+    +-3 cells, of taps, and of taps whose sample point lies outside the map
+    [0, H-1] x [0, W-1] (so that at least one corner weighs zero)."""
+    import torch
+
+    b, ho, wo = offsets.shape[:3]
+    off = offsets.float().reshape(b, ho, wo, 3, 3, 2)
+    dev = offsets.device
+    tap = torch.arange(3, device=dev, dtype=torch.float32) * dilation - dilation
+    sy = (torch.arange(ho, device=dev) * stride)[:, None, None, None] + tap[:, None] + off[..., 0]
+    sx = (torch.arange(wo, device=dev) * stride)[None, :, None, None] + tap + off[..., 1]
+    out = (sy < 0) | (sy > h - 1) | (sx < 0) | (sx > w - 1)
+    return {"values": off.numel(), "beyond3": int((off.abs() > 3).sum()),
+            "taps": out.numel(), "taps_out": int(out.sum()),
+            "sq": float((off.double() ** 2).sum()), "max": float(off.abs().max())}
+
+
+def merge_stats(total: dict, part: dict) -> dict:
+    return {k: (max(total.get(k, 0.0), v) if k == "max" else total.get(k, 0) + v)
+            for k, v in part.items()}
+
+
+def describe_stats(st: dict) -> str:
+    return (f"offset std {(st['sq'] / st['values']) ** 0.5:.3f} cells, max |offset| "
+            f"{st['max']:.2f}, {100 * st['beyond3'] / st['values']:.2f}% beyond +-3, "
+            f"{100 * st['taps_out'] / st['taps']:.2f}% of taps sample outside the map")
+
+
+def phase_deform_conv(device) -> dict:
+    """K5 (stride 1) and K5b (stride 2) against the plain version at the six
+    DCN layer shapes of the cascade path, batch 8, offsets of std 1.5 cells."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import deform_conv2d_cuda
+    from mxdetection_tpu_torch.ops.dcn import deform_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(10)
+    b = MAIN_BATCH
+    res = {stride: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "library_ms": 0.0, "bound_ms_by": {"bytes": 0.0, "operations": 0.0},
+                    "by_shape": {}} for stride in (1, 2)}
+    for stage, h, w, c, stride, n in DCN_LAYERS:
+        ho, wo = -(-h // stride), -(-w // stride)
+        x32 = torch.randn((b, h, w, c), generator=gen).to(device)
+        off = (torch.randn((b, ho, wo, 18), generator=gen) * 1.5).to(device)
+        w32 = (torch.randn((3, 3, c, c), generator=gen) * (2.0 / (9 * c)) ** 0.5).to(device)
+        st = sample_stats(off, h, w, stride, 1)
+        shape = f"{stage} s{stride} {h}x{w}x{c}"
+        ref = deform_conv2d(x32, off, w32, stride=stride)
+        got = deform_conv2d_cuda(x32, off, w32, stride=stride)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err32 = (got - ref).abs().max().item()
+        x16, w16 = x32.bfloat16(), w32.bfloat16()
+        ref16 = deform_conv2d(x16, off, w16, stride=stride).float()
+        got16 = deform_conv2d_cuda(x16, off, w16, stride=stride).float()
+        torch.cuda.synchronize()
+        err16 = (got16 - ref16).abs()
+        ok16 = bool((err16 <= 2.0 ** -7 * ref16.abs() + 1e-4 * scale).all())
+        if not (torch.isfinite(got).all() and torch.isfinite(got16).all()):
+            fail(f"K5 {shape}: non-finite output")
+        kernel = lambda: deform_conv2d_cuda(x16, off, w16, stride=stride)
+        plain = lambda: deform_conv2d(x16, off, w16, stride=stride)
+        xc = x16.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+        wc = w16.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library = lambda: F.conv2d(xc, wc, stride=stride, padding=1)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        ms, library_ms = time_ms(kernel), time_ms(library)
+        plain_ms = (plain_ms + time_ms(plain, reps=3, warmup=1)) / 2
+        f32_ms = time_ms(lambda: deform_conv2d_cuda(x32, off, w32, stride=stride), reps=3)
+        bound_ms, bound_by = dcn_bound(b, h, w, c, stride, torch.bfloat16)
+        log(f"K5{'b' if stride == 2 else ''} deform_conv {shape} -> {ho}x{wo}, x{n} a batch: "
+            f"f32 max_abs_err {err32:.3e} of max|ref| {scale:.3e} (<= 1e-4 max|ref|: "
+            f"{'ok' if err32 <= 1e-4 * scale else 'FAILED'}), bf16 max_abs_err "
+            f"{err16.max().item():.3e} (|err| <= 2^-7 |ref| + 1e-4 max|ref|: "
+            f"{'ok' if ok16 else 'FAILED'}); bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.conv2d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); f32 kernel "
+            f"{f32_ms:.4f} ms (bound {dcn_bound(b, h, w, c, stride, torch.float32)[0]:.4f}); "
+            f"{describe_stats(st)}")
+        if err32 > 1e-4 * scale or not ok16:
+            fail(f"K5 disagrees with its plain version at {shape}")
+        r = res[stride]
+        r["max_abs_err"] = max(r["max_abs_err"], err32)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                     ("library_ms", library_ms)):
+            r[k] += n * v  # per batch of the cascade path
+        r["bound_ms_by"][bound_by] += n * bound_ms
+        r["bound_by"] = max(r["bound_ms_by"], key=r["bound_ms_by"].get)
+        r["by_shape"][shape] = {"layers": n, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": library_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "f32_ms": f32_ms, "f32_max_abs_err": err32}
+        del x32, off, w32, ref, got, x16, w16, ref16, got16, err16
+
+    # radius 3 (the Pallas kernels' clamp), dilation 2 and zero offsets, in f32
+    x = torch.randn((b, 52, 84, 256), generator=gen).to(device)
+    off = (torch.randn((b, 52, 84, 18), generator=gen) * 1.5).to(device)
+    wt = (torch.randn((3, 3, 256, 256), generator=gen) * (2.0 / (9 * 256)) ** 0.5).to(device)
+    checks = [("radius 3", deform_conv2d_cuda(x, off, wt, radius=3),
+               deform_conv2d(x, off, wt, radius=3))]
+    zero = torch.zeros_like(off)
+    conv = F.conv2d(x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), padding=1)
+    checks.append(("zero offsets vs F.conv2d", deform_conv2d_cuda(x, zero, wt),
+                   conv.permute(0, 2, 3, 1)))
+    xs = torch.randn((2, 20, 24, 128), generator=gen).to(device)
+    ws = (torch.randn((3, 3, 128, 128), generator=gen) * 0.03).to(device)
+    for stride in (1, 2):
+        offs = (torch.randn((2, -(-20 // stride), -(-24 // stride), 18), generator=gen)
+                * 1.5).to(device)
+        checks.append((f"dilation 2 stride {stride}",
+                       deform_conv2d_cuda(xs, offs, ws, stride=stride, dilation=2),
+                       deform_conv2d(xs, offs, ws, stride=stride, dilation=2)))
+    torch.cuda.synchronize()
+    for what, got, ref in checks:
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        log(f"K5 {what} (f32): max_abs_err {err:.3e} of max|ref| {scale:.3e} "
+            f"(<= 1e-4 max|ref|: {'ok' if err <= 1e-4 * scale else 'FAILED'})")
+        if not err <= 1e-4 * scale:
+            fail(f"K5 {what}: disagrees with its reference")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: the Cascade R-CNN R101-DCN inference path
+
+
+def dcn_layers(model) -> list:
+    from mxdetection_tpu_torch.models.backbones.resnet import DeformConv
+
+    return [m for m in model.modules() if isinstance(m, DeformConv)]
+
+
+def seed_offset_convs(model, cfg, raw, hw, gen) -> None:
+    """Overwrite every offset conv's weight (zero in the JAX init, which
+    would make each DCN a plain conv) with seeded normal noise scaled by
+    1 / (sqrt(9 Cin) * RMS of the layer's input), so that its offsets have
+    a std of about 1 cell. The RMS is measured layer by layer in one f32
+    forward pass of ``raw`` (each layer's input depends on the offsets
+    before it)."""
+    import torch
+
+    def pre(m, args):
+        rms = args[0].float().pow(2).mean().sqrt()
+        w = m.offset_conv.weight
+        noise = torch.randn(w.shape, generator=gen).to(w.device)
+        with torch.no_grad():
+            w.copy_(noise / (rms * (9 * w.shape[1]) ** 0.5))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in dcn_layers(model)]
+    try:
+        detect(model, cfg, raw, hw, torch.float32)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def offset_stats(model, run) -> dict:
+    """Sample statistics of every DCN layer's offsets over one ``run()``."""
+    total = {}
+
+    def post(dcn, args, out):
+        nonlocal total
+        h, w = args[0].shape[2:]
+        total = merge_stats(total, sample_stats(out.permute(0, 2, 3, 1), h, w, dcn.stride,
+                                                dcn.dilation))
+
+    hooks = [m.offset_conv.register_forward_hook(
+        lambda _, args, out, dcn=m: post(dcn, args, out)) for m in dcn_layers(model)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
+
+
+def phase_cascade_path(device, card: str, counters, profile_dir: str | None) -> dict:
+    """Cascade R-CNN R101-DCN inference: seed 0 weights whose offset convs
+    are calibrated on the main batch (in f32), the card-vs-CPU check on a
+    small f32 input with those weights, then 8x832x1344 bf16 batches."""
+    import copy
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.registry import build_detector
+
+    torch.backends.cudnn.allow_tf32 = False  # the card-vs-CPU check is in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(CASCADE)
+    small = cfg.override(**SMALL_OVERRIDES)
+    t0 = time.perf_counter()
+    cpu_model = build_detector(small, device="cpu", seed=0)
+    log(f"cascade path: {cfg.name}, seeded init in {time.perf_counter() - t0:.1f} s, "
+        f"{len(dcn_layers(cpu_model))} DCN layers")
+    gen = torch.Generator().manual_seed(12)
+    raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
+                        dtype=torch.uint8).to(device)
+    hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    seed_offset_convs(gpu_model, cfg, raw, hw, torch.Generator().manual_seed(11))
+    state = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+    cpu_model.load_state_dict(state)
+
+    small_raw, small_hw = small_input()
+    st = offset_stats(gpu_model, lambda: detect(gpu_model, small, small_raw.to(device),
+                                                small_hw.to(device), torch.float32))
+    log(f"cascade small f32 input: {describe_stats(st)}")
+    t0 = time.perf_counter()
+    dets_cpu = detect(cpu_model, small, small_raw, small_hw, torch.float32)[0]
+    log(f"cascade small f32 input on the CPU: {time.perf_counter() - t0:.1f} s")
+    dets_gpu = detect(gpu_model, small, small_raw.to(device), small_hw.to(device),
+                      torch.float32)[0]
+    check_parity(dets_cpu, dets_gpu, small_hw, "cascade small f32 input (cuDNN and matmul TF32 "
+                 "off)")
+    del cpu_model, gpu_model
+
+    dtype = getattr(torch, cfg.backbone.dtype)
+    model = build_detector(cfg, device=device)  # bf16, offset convs f32
+    model.load_state_dict(state)  # the seeded weights above, cast where stored in bf16
+    st = offset_stats(model, lambda: detect(model, cfg, raw, hw, dtype))
+    log(f"cascade path, one batch of {MAIN_BATCH}x832x1344: {describe_stats(st)}")
+    launches = drive(model, cfg, raw, hw, dtype, counters, card, "cascade path")[0]
+    per_batch = {k: n / (TIMED_BATCHES + 1) for k, n in launches.items()}
+    log(f"cascade path: launches per batch {per_batch}")
+    if per_batch.get("deform_conv") != 27 or per_batch.get("deform_conv_s2") != 3:
+        fail(f"cascade path: expected 27 K5 and 3 K5b launches a batch, got {per_batch}")
+    if profile_dir is not None:
+        phase_profile(model, cfg, raw, hw, dtype, profile_dir, label="cascade_path")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 9: training path
 
 
 def train_batch(b: int, raw_hw, gen, device) -> dict:
@@ -862,17 +1179,22 @@ def main() -> int:
     k4 = phase_iou(device)
     k3 = phase_roi_align_bwd(device)
 
+    from mxdetection_tpu_torch.ops.cuda import deform_conv as dcn_cuda
     from mxdetection_tpu_torch.ops.cuda import iou as iou_cuda
     from mxdetection_tpu_torch.ops.cuda import nms as nms_cuda
     from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
 
-    paths = {
-        "inference": phase_main_path(device, card, [roi_cuda.launch_count,
-                                                    nms_cuda.launch_count], args.profile),
-        "train": phase_train_path(device, card, [
-            roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
-            roi_cuda.convert_launch_count, iou_cuda.launch_count], args.profile),
-    }
+    # The Faster R-CNN path runs right after the kernel checks it ran after
+    # before the cascade's phases existed, so its times stay comparable.
+    paths = {"inference": phase_main_path(device, card, [roi_cuda.launch_count,
+                                                         nms_cuda.launch_count], args.profile)}
+    k5 = phase_deform_conv(device)
+    paths["cascade_inference"] = phase_cascade_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
+        dcn_cuda.s2_launch_count], args.profile)
+    paths["train"] = phase_train_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
+        roi_cuda.convert_launch_count, iou_cuda.launch_count], args.profile)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res
@@ -892,6 +1214,12 @@ def main() -> int:
               k3["bfloat16"]),
         entry("f32_to_bf16", "roi_align_bwd.cu", K3B_REPLACES, "f32_to_bf16", k3["k3b"]),
         entry("pairwise_iou", "iou.cu", K4_REPLACES, "iou", k4),
+        # times, bounds and cuDNN's F.conv2d yardstick are per batch of the
+        # cascade path: the sum over its DCN layers of each shape
+        {**entry("deform_conv", "deform_conv.cu", K5_REPLACES, "deform_conv", k5[1]),
+         "by_shape": k5[1]["by_shape"]},
+        {**entry("deform_conv_s2", "deform_conv.cu", K5B_REPLACES, "deform_conv_s2", k5[2]),
+         "by_shape": k5[2]["by_shape"]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -2,8 +2,13 @@
 
 v1b: the stride of a downsampling bottleneck sits on its 3x3 conv. The stem
 is the plain 7x7/2 conv + 3x3/2 max-pool; the JAX package's opt-in
-space-to-depth stem is a TPU measure and is not ported. Deformable stages
-are ROADMAP Queue 1 item 13.
+space-to-depth stem is a TPU measure and is not ported.
+
+Deformable stages (``dcn_stages``) are ported for inference: their 3x3 is a
+``DeformConv``, whose offsets come from an f32 conv and whose sampling and
+product run in ``ops/dcn.py`` (on the card the kernel K5/K5b). Their
+backward on the card (K6, K7) is ROADMAP Queue 1 item 13b; on the CPU the
+plain version is differentiable.
 
 Frozen stages: the activations are detached exactly where the JAX module
 puts ``stop_gradient``, after the stem's ReLU (when ``frozen_stages >= 0``)
@@ -23,20 +28,59 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import Conv2d, FrozenBatchNorm, conv, init_layer_
+from ...ops.dcn import deform_conv2d_batched
+from ..layers import Conv2d, FrozenBatchNorm, conv, he_normal_, init_layer_
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
-class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1 with identity/projection shortcut."""
+class DeformConv(nn.Module):
+    """3x3 deformable conv: a regular 3x3 conv with bias (``offset_conv``,
+    18 outputs, the layer's stride and dilation, padding ``dilation``)
+    predicts the per-tap (dy, dx) offsets, which feed ``ops/dcn.py``.
 
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+    As in the JAX layer, the offset conv computes in float32 on ``x.float()``
+    whatever the model's dtype (``build_detector`` keeps its parameters f32)
+    and is zero-initialised; ``weight`` is (Cout, Cin, 3, 3) and computes in
+    x's dtype. Takes and returns NCHW tensors in channels_last memory.
+    """
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.stride, self.dilation = stride, dilation
+        self.offset_conv = Conv2d(in_channels, 2 * 9, 3, stride=stride, padding=dilation,
+                                  dilation=dilation, bias=True)
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        he_normal_(self.weight, gen)
+        with torch.no_grad():
+            self.offset_conv.weight.zero_()
+            self.offset_conv.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # An 18-channel conv output need not be channels_last: make the NHWC
+        # offsets contiguous on purpose (a no-op when they already are).
+        offsets = self.offset_conv(x.float()).permute(0, 2, 3, 1).contiguous()
+        out = deform_conv2d_batched(
+            x.permute(0, 2, 3, 1).contiguous(), offsets,
+            self.weight.to(x.dtype).permute(2, 3, 1, 0), stride=self.stride,
+            dilation=self.dilation)
+        return out.permute(0, 3, 1, 2)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride) -> 1x1 with identity/projection shortcut; the 3x3
+    is a ``DeformConv`` with ``use_dcn``."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 use_dcn: bool = False):
         super().__init__()
         out = channels * 4
         self.conv1 = conv(in_channels, channels, 1)
         self.bn1 = FrozenBatchNorm(channels)
-        self.conv2 = conv(channels, channels, 3, stride)
+        self.conv2 = (DeformConv(channels, channels, stride) if use_dcn
+                      else conv(channels, channels, 3, stride))
         self.bn2 = FrozenBatchNorm(channels)
         self.conv3 = conv(channels, out, 1)
         self.bn3 = FrozenBatchNorm(out)
@@ -67,9 +111,6 @@ class ResNet(nn.Module):
         if norm_kind != "frozen_bn":
             raise NotImplementedError(f"backbone norm {norm_kind!r} is not ported yet "
                                       "(ROADMAP Queue 1 item 10: SyncBN)")
-        if any(dcn_stages):
-            raise NotImplementedError("deformable stages are not ported yet "
-                                      "(ROADMAP Queue 1 item 13: Cascade R-CNN DCN)")
         if s2d_stem:
             raise NotImplementedError("the space-to-depth stem is a TPU measure and is not ported")
         if dilated_c5:
@@ -86,13 +127,15 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 name = f"layer{stage + 1}_block{b}"
-                self.add_module(name, Bottleneck(in_ch, width, stride))
+                self.add_module(name, Bottleneck(in_ch, width, stride,
+                                                 use_dcn=bool(dcn_stages[stage])))
                 in_ch = width * 4
                 names.append(name)
             self.block_names.append(names)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """he_normal for every conv, as flax; FrozenBN identity except the
+        """he_normal for every conv, as flax (a DeformConv's offset conv
+        zero, as the JAX layer's); FrozenBN identity except the
         last BN of each block, whose gamma is 1/sqrt(number of blocks), so
         the variance of the residual sum grows by a bounded factor over the
         whole network instead of doubling at every block.
@@ -108,6 +151,9 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 init_layer_(m, "he_normal", gen)
+        for m in self.modules():  # after the loop above, which also visits offset_conv
+            if isinstance(m, DeformConv):
+                m.reset_parameters(gen)
         gamma = len(sum(self.block_names, [])) ** -0.5
         for names in self.block_names:
             for name in names:

@@ -1,9 +1,14 @@
-"""Faster R-CNN — port of the one-stage paths of
-``mxdetection_tpu.models.detectors.rcnn``.
+"""Faster and Cascade R-CNN — port of ``mxdetection_tpu.models.detectors.rcnn``.
 
-Inference: ResNet -> FPN P2-P6 -> RPN -> proposals (per-level top-k, decode,
-clip, NMS, merged top-k) -> multilevel RoIAlign 7x7 on P2-P5 -> 2fc bbox
-head; then ``rcnn_postprocess`` decodes per class and runs class-aware NMS.
+Inference: ResNet (with deformable stages for the Cascade R-CNN DCN config)
+-> FPN P2-P6 -> RPN -> proposals (per-level top-k, decode, clip, NMS, merged
+top-k) -> multilevel RoIAlign 7x7 on P2-P5 -> 2fc bbox head; then
+``rcnn_postprocess`` decodes per class (class-agnostic for the cascade) and
+runs class-aware NMS. With ``cfg.cascade`` the RoIAlign + head stage runs
+``num_stages`` times: each stage's class-agnostic deltas, decoded with that
+stage's stds and clipped (``decode_stage_boxes``), are the next stage's
+rois; the scores are the mean of the stages' softmaxes and the final boxes
+decode the last stage's deltas.
 
 Training (``forward_train`` + ``rcnn_loss``): the same trunk with the
 training proposal counts, then ``sample_rois`` picks the second stage's
@@ -66,15 +71,24 @@ def batched_roi_align(pyramid: list, rois: torch.Tensor, valid: torch.Tensor, cf
         roi_valid=valid)
 
 
+def decode_stage_boxes(rois: torch.Tensor, deltas: torch.Tensor, stds,
+                       image_hw: torch.Tensor) -> torch.Tensor:
+    """Class-agnostic decode + clip for cascade refinement: rois (B, R, 4),
+    deltas (B, R, 4), image_hw (B, 2) -> (B, R, 4)."""
+    boxes = box_lib.decode_boxes(rois, deltas, stds=stds)
+    return box_lib.clip_boxes(boxes, image_hw[:, None, :])
+
+
 class RCNN(nn.Module):
-    """One-stage Faster R-CNN (FPN). Parameter names follow the JAX module
-    tree, so ``utils/convert.py`` maps a flax checkpoint 1:1. Computes in
+    """Faster R-CNN (FPN), or Cascade R-CNN with ``cfg.cascade``. Parameter
+    names follow the JAX module tree (``bbox_head0`` .. ``bbox_head{n-1}``),
+    so ``utils/convert.py`` maps a flax checkpoint 1:1. Computes in
     ``cfg.backbone.dtype`` whatever the dtype of its parameters."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         c = cfg
-        if c.detector != "faster_rcnn" or c.cascade or c.mask_head is not None:
+        if c.detector not in ("faster_rcnn", "cascade_rcnn") or c.mask_head is not None:
             raise NotImplementedError(f"detector {c.detector!r} is not ported yet "
                                       "(ROADMAP Queue 1 items 11-14)")
         self.cfg = cfg
@@ -88,14 +102,25 @@ class RCNN(nn.Module):
         self.rpn = RPNHead(num_anchors=rpn_anchor_cfg(c).num_base_anchors,
                            channels=c.fpn.out_channels)
         p = c.roi.output_size
-        self.bbox_head0 = BBoxHead(p * p * c.fpn.out_channels,
-                                   num_classes=c.bbox_head.num_classes,
-                                   fc_channels=c.bbox_head.fc_channels,
-                                   class_agnostic=c.bbox_head.class_agnostic)
+        self.num_stages = c.cascade.num_stages if c.cascade else 1
+        self.class_agnostic = bool(c.cascade) or c.bbox_head.class_agnostic
+        for i in range(self.num_stages):
+            self.add_module(f"bbox_head{i}", BBoxHead(
+                p * p * c.fpn.out_channels, num_classes=c.bbox_head.num_classes,
+                fc_channels=c.bbox_head.fc_channels, class_agnostic=self.class_agnostic))
+
+    def bbox_head(self, i: int) -> BBoxHead:
+        return getattr(self, f"bbox_head{i}")
+
+    def _stage_stds(self, i: int):
+        c = self.cfg
+        return c.cascade.stage_bbox_stds[i] if c.cascade else c.bbox_head.bbox_stds
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        for m in (self.backbone, self.fpn, self.rpn, self.bbox_head0):
+        for m in (self.backbone, self.fpn, self.rpn):
             m.reset_parameters(gen)
+        for i in range(self.num_stages):
+            self.bbox_head(i).reset_parameters(gen)
 
     def extract(self, images: torch.Tensor) -> list:
         return self.fpn(self.backbone(images))
@@ -118,16 +143,25 @@ class RCNN(nn.Module):
             nms_thr=c.rpn.nms_thr, min_box_size=c.rpn.min_box_size,
             bbox_stds=c.rpn.bbox_stds)
 
-        roi_feats = batched_roi_align(pyramid, rois, roi_valid, c, c.roi.output_size)
-        s = roi_feats.shape[1]
-        cls_logits, deltas = self.bbox_head0(roi_feats.reshape(b * s, *roi_feats.shape[2:]))
+        stage_rois, probs_sum, deltas = rois, None, None
+        for i in range(self.num_stages):
+            roi_feats = batched_roi_align(pyramid, stage_rois, roi_valid, c, c.roi.output_size)
+            s = roi_feats.shape[1]
+            cls_logits, deltas = self.bbox_head(i)(
+                roi_feats.reshape(b * s, *roi_feats.shape[2:]))
+            deltas = deltas.reshape(b, s, -1)
+            p = torch.softmax(cls_logits.reshape(b, s, -1), dim=-1)
+            probs_sum = p if probs_sum is None else probs_sum + p
+            if i + 1 < self.num_stages:
+                stage_rois = decode_stage_boxes(stage_rois, deltas, self._stage_stds(i),
+                                                resized_hw)
         return {
             "pyramid": pyramid,
-            "rois": rois, "roi_valid": roi_valid,
-            "probs": torch.softmax(cls_logits.reshape(b, s, -1), dim=-1),
-            "deltas": deltas.reshape(b, s, -1),
-            "final_stds": c.bbox_head.bbox_stds,
-            "class_agnostic": c.bbox_head.class_agnostic,
+            "rois": stage_rois, "roi_valid": roi_valid,
+            "probs": probs_sum / self.num_stages,
+            "deltas": deltas,  # the last stage's
+            "final_stds": self._stage_stds(self.num_stages - 1),
+            "class_agnostic": self.class_agnostic,
         }
 
     def forward(self, images: torch.Tensor, im_info: torch.Tensor) -> dict:
@@ -138,6 +172,10 @@ class RCNN(nn.Module):
         network coordinates, gt_labels (B, G) 0-based, gt_valid (B, G).
         Returns the stage-1 outputs and targets that ``rcnn_loss`` reads."""
         c = self.cfg
+        if c.cascade:
+            raise NotImplementedError("the cascade's training step (relabel_rois, the stage "
+                                      "losses, the DCN backward kernels) is not ported yet "
+                                      "(ROADMAP Queue 1 item 13b)")
         images = tb["images"].to(self.compute_dtype)
         b = images.shape[0]
         pyramid = self.extract(images)

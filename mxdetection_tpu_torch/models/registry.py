@@ -1,5 +1,7 @@
 """Detector registry — port of ``mxdetection_tpu.models.registry`` for the
-detectors ported so far (Faster R-CNN inference and training)."""
+detectors ported so far: Faster R-CNN (inference and training) and Cascade
+R-CNN with deformable convs (inference; its training is ROADMAP Queue 1
+item 13b)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,17 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
     caller asks for the CPU), channels-last, computing in the config's dtype.
 
     ``train=False``: an eval-mode model whose parameters are stored in the
-    compute dtype. ``train=True``: a train-mode model whose parameters stay
+    compute dtype, but for the deformable convs' offset convs, which stay
+    f32 as the JAX layer's (sample positions depend on them). ``train=True``: a train-mode model whose parameters stay
     f32 master weights, cast to the compute dtype where they are read, as
     flax's ``param_dtype=float32, dtype=bfloat16``. With ``seed`` the
     weights get the JAX package's initialisers from a ``torch.Generator``
     (the card has no JAX to convert weights from); otherwise load a
     converted ``state_dict`` (``utils/convert.py``)."""
-    if cfg.detector != "faster_rcnn":
+    if cfg.detector not in ("faster_rcnn", "cascade_rcnn"):
         raise NotImplementedError(f"detector {cfg.detector!r} is not ported yet "
                                   "(ROADMAP Queue 1 items 11-14)")
+    from .backbones.resnet import DeformConv
     from .detectors.rcnn import RCNN
 
     device = require_device(device)
@@ -40,6 +44,9 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
         model.reset_parameters(torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last).train(train)
     if not train:
+        keep_f32 = {id(p) for m in model.modules() if isinstance(m, DeformConv)
+                    for p in m.offset_conv.parameters()}
         for p in model.parameters():  # FrozenBN statistics stay f32 buffers, as in JAX
-            p.data = p.data.to(model.compute_dtype)
+            if id(p) not in keep_f32:
+                p.data = p.data.to(model.compute_dtype)
     return model

@@ -119,8 +119,9 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_f32_to_bf16.argtypes = [p, p, ll, p]
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
     lib.mxdet_pairwise_iou.argtypes = [p, ll, p, i, i, i, p, p]
+    lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
     for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_f32_to_bf16,
-               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou):
+               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou, lib.mxdet_deform_conv_fwd):
         fn.restype = i
     return lib
 

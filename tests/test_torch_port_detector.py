@@ -218,15 +218,16 @@ def test_detector_reproduces_jax_fixture():
 
 
 def test_build_detector_rejects_unported():
-    for name in ("mask_rcnn_r50_fpn_1x", "retinanet_r50_fpn_1x", "cascade_rcnn_r101_dcn_1x"):
+    for name in ("mask_rcnn_r50_fpn_1x", "retinanet_r50_fpn_1x"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")), device="cpu")
 
 
 def test_port_runs_without_jax():
-    """The port imports and runs a tiny seeded forward and one training
-    step with jax, flax, optax and the JAX package blocked: the card's
-    machine has no jax, and the port keeps its own configs."""
+    """The port imports and runs a tiny seeded forward, one training step
+    and a tiny cascade forward (DCN in stage 4) with jax, flax, optax and
+    the JAX package blocked: the card's machine has no jax, and the port
+    keeps its own configs."""
     script = textwrap.dedent("""
         import sys
         for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
@@ -236,7 +237,7 @@ def test_port_runs_without_jax():
         from mxdetection_tpu_torch.data.transforms import batch_transform
         from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
         from mxdetection_tpu_torch.models.registry import build_detector
-        from mxdetection_tpu_torch.ops.cuda import build, iou, nms, roi_align
+        from mxdetection_tpu_torch.ops.cuda import build, deform_conv, iou, nms, roi_align
         from mxdetection_tpu_torch.train.trainer import Trainer
         from mxdetection_tpu_torch.utils import convert
 
@@ -265,8 +266,18 @@ def test_port_runs_without_jax():
             "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
             "gt_valid": torch.tensor([[True, False, False]] * 2)})
         assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        casc = load_config("cascade_rcnn_r101_dcn_1x").override(**{
+            "data.pad_h": 128, "data.pad_w": 160, "data.scale": 120, "data.max_size": 160,
+            "backbone.depth": 50, "backbone.dtype": "float32",
+            "backbone.dcn_stages": (False, False, False, True),
+            "rpn.pre_nms_top_n_test": 100, "rpn.post_nms_top_n_test": 50,
+            "test.pre_nms_per_class": 100, "test.max_per_image": 10})
+        model = build_detector(casc, device="cpu", seed=0)
+        dets = rcnn_postprocess(model.forward_test(tb["images"], tb["im_info"]), casc,
+                                (d.pad_h, d.pad_w), tb["im_info"])
+        assert torch.isfinite(dets["boxes"]).all() and int(dets["valid"].sum()) > 0
         counts = (roi_align.launch_count, roi_align.bwd_launch_count, nms.launch_count,
-                  iou.launch_count)
+                  iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count)
         assert all(c.n == 0 for c in counts)
         assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
