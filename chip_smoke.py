@@ -45,7 +45,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
-10. prints the card's name and power limit, the kernel table as one JSON
+10. holds the deformable conv's backward kernels (K6/K6b: the patches
+   rebuilt with the offset gradient reduced over channels; K7/K7b: dx by
+   atomics) against their plain versions at the six DCN layer shapes
+   (offsets of std 1.5 cells): f32 within 1e-4 of the largest gradient, and
+   the whole bf16 backward of ``DeformConvFunction`` against the f32 plain
+   one, norm-relative under 3 % (dx, dW) and 6 % (doffsets); also with
+   ``radius=3`` and at zero offsets against ``F.conv2d``'s gradients; times
+   each kernel, its plain version and cuDNN's conv backward of the same
+   shape (wgrad beside K6, dgrad beside K7);
+11. drives the Cascade R-CNN R101-DCN training path at full width:
+   ``Trainer.run_step`` in bf16 with seeded weights and the offset-conv
+   noise of step 8, 2 warm-up and 10 timed steps, every kernel's launch count
+   rising (K5, K5b, K6, K6b, K7, K7b 27 or 3 times a step), after a
+   card-vs-CPU f32 step at 256x320 with that noise in the first DCN of each
+   stage (losses 1e-4, grad norms 1e-3, discrete metrics equal);
+12. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -55,15 +70,17 @@ exits non-zero at once: there is no CPU fallback.
 each detector and a training step into their stages (CUDA events at the
 module boundaries) and traces each with ``torch.profiler``: kernel time by
 name, the device's idle share, and Chrome traces written to
-``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz`` and
-``DIR/train_step_trace.json.gz``.
+``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz``,
+``DIR/train_step_trace.json.gz`` and ``DIR/cascade_train_trace.json.gz``.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work on this run's inputs: the largest of the bytes the function must
 move (each input read once, each output written once) over 3.35 TB/s, its
 f32 operations over 67 TFLOP/s (outside the tensor cores) and, for the
 deformable conv's bf16 product, its tensor-core operations over 989
-TFLOP/s: the H100 SXM's published peaks.
+TFLOP/s: the H100 SXM's published peaks. The DCN kernels' times, bounds
+and yardsticks are summed over the DCN layers of a batch (K5, K5b) or of a
+training step (K6, K6b, K7, K7b).
 """
 
 from __future__ import annotations
@@ -81,6 +98,10 @@ K3B_REPLACES = "mxdetection_tpu/ops/pallas/roi_align.py:516"
 K4_REPLACES = "mxdetection_tpu/ops/pallas/iou.py:24"
 K5_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:43"
 K5B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:622"
+K6_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:261"
+K6B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:894"
+K7_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:345"
+K7B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:804"
 CASCADE = "cascade_rcnn_r101_dcn_1x"
 MAIN_BATCH = 8
 TIMED_BATCHES = 20
@@ -676,6 +697,15 @@ def trace(run, reps: int, label: str, path: str) -> None:
     for e in kernels[:20]:
         ms = e.self_device_time_total / 1e3 / reps
         log(f"profile {label} kernel {ms:8.3f} ms {e.count // reps:6d} calls  {e.key[:90]}")
+    # the device time of the kernels each op launched, itself or through the
+    # ops it called (so nested ops count twice: an autograd node's total
+    # holds its matmuls' too)
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                  and e.device_time_total > 0 and not e.key.startswith("ProfilerStep")),
+                 key=lambda e: e.device_time_total, reverse=True)
+    for e in ops[:15]:
+        ms = e.device_time_total / 1e3 / reps
+        log(f"profile {label} op {ms:8.3f} ms {e.count // reps:6d} calls  {e.key[:90]}")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     log(f"profile {label}: trace written to {path}")
@@ -998,16 +1028,24 @@ def grad_norms(model) -> dict:
     import torch
 
     out = {}
-    for mod in ("backbone", "fpn", "rpn", "bbox_head0"):
+    for mod in ("backbone", "fpn", "rpn", *(f"bbox_head{i}" for i in range(model.num_stages))):
         gs = [p.grad.double() for p in getattr(model, mod).parameters() if p.grad is not None]
         out[f"gnorm_{mod}"] = float(torch.sqrt(sum((g * g).sum() for g in gs)))
     return out
 
 
-def small_train_parity(device) -> None:
+SMALL_TRAIN_OVERRIDES = {
+    "data.pad_h": 256, "data.pad_w": 320, "data.scale": 240, "data.max_size": 320,
+    "data.max_gt": 8, "backbone.dtype": "float32", "bbox_head.num_samples": 32,
+    "rpn.pre_nms_top_n_train": 400, "rpn.post_nms_top_n_train": 100}
+
+
+def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
+                       what: str = "small f32 train step") -> None:
     """One f32 training step at 256x320, batch 2, on the card (kernels) and
     on the CPU (plain versions, which the CPU tests hold against the JAX
-    package), from the same weights and the same random draws."""
+    package), from the same weights (seed 0, or ``state``) and the same
+    random draws."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -1016,36 +1054,37 @@ def small_train_parity(device) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = load_config("faster_rcnn_r50_fpn_1x", {
-        "data.pad_h": 256, "data.pad_w": 320, "data.scale": 240, "data.max_size": 320,
-        "data.max_gt": 8, "backbone.dtype": "float32", "bbox_head.num_samples": 32,
-        "rpn.pre_nms_top_n_train": 400, "rpn.post_nms_top_n_train": 100})
+    cfg = load_config(name, SMALL_TRAIN_OVERRIDES)
     batch = train_batch(2, (240, 300), torch.Generator().manual_seed(7), "cpu")
     batch = {k: v[:, :8] if k.startswith("gt_") else v for k, v in batch.items()}
     replay = ReplayDraws(8)
-    model = build_detector(cfg, device="cpu", seed=0, train=True)
-    state = {k: v.clone() for k, v in model.state_dict().items()}
+    if state is None:
+        model = build_detector(cfg, device="cpu", seed=0, train=True)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
     res = {}
     for dev in ("cpu", device):
         m = build_detector(cfg, device="cpu", train=True)
         m.load_state_dict(state)
+        t0 = time.perf_counter()
         metrics = Trainer(cfg, m, device=dev).run_step(batch, draws=replay.on(dev))
         res[dev] = {**{k: float(v) for k, v in metrics.items()}, **grad_norms(m)}
+        log(f"{what} on {dev}: {time.perf_counter() - t0:.1f} s")
     cpu, gpu = res["cpu"], res[device]
+    discrete = [k for k in cpu if k == "num_pos_rois" or k.startswith("rcnn_acc")]
     worst = {}
     for k, r in cpu.items():
-        if k in ("num_pos_rois", "rcnn_acc0"):
+        if k in discrete:
             if gpu[k] != r:
-                fail(f"small train step: {k} {gpu[k]} on the card, {r} on the CPU")
+                fail(f"{what}: {k} {gpu[k]} on the card, {r} on the CPU")
             continue
         worst[k] = abs(gpu[k] - r) / max(abs(r), 1e-12)
-    log("small f32 train step card vs CPU: " + ", ".join(
+    log(f"{what} card vs CPU: " + ", ".join(
         f"{k} {cpu[k]:.6g} rel {worst[k]:.2e}" for k in sorted(worst))
-        + f"; num_pos_rois {cpu['num_pos_rois']}, rcnn_acc0 {cpu['rcnn_acc0']:.4f} equal"
+        + "; " + ", ".join(f"{k} {cpu[k]:.4f}" for k in discrete) + " equal"
         " (bounds: losses 1e-4, grad norms 1e-3 relative)")
     for k, rel in worst.items():
         if rel > (1e-3 if "norm" in k else 1e-4):
-            fail(f"small train step: {k} differs by {rel:.2e} relative between card and CPU")
+            fail(f"{what}: {k} differs by {rel:.2e} relative between card and CPU")
 
 
 def train_stage_breakdown(trainer, batch, reps: int) -> dict:
@@ -1066,10 +1105,16 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
         model.backbone.register_forward_hook(lambda *_: mark("backbone")),
         model.fpn.register_forward_hook(lambda *_: mark("fpn")),
         model.rpn.register_forward_hook(lambda *_: mark("rpn_head")),
-        model.bbox_head0.register_forward_pre_hook(
-            lambda *_: mark("proposals + sample_rois + roi_align")),
-        model.bbox_head0.register_forward_hook(lambda *_: mark("bbox_head")),
     ]
+    n = model.num_stages
+    for i in range(n):  # a cascade stage: (decode + relabel of the last +) RoIAlign, its head
+        before = ("proposals + sample_rois + roi_align" if i == 0
+                  else f"decode{i - 1} + relabel{i} + roi_align{i}")
+        after = "bbox_head" if n == 1 else f"bbox_head{i}"
+        hooks += [
+            model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
+            model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
+        ]
     totals = {}
     try:
         for _ in range(reps):
@@ -1096,30 +1141,24 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
     return totals
 
 
-def phase_train_path(device, card: str, counters, profile_dir: str | None) -> dict:
+def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str | None,
+                trace_name: str) -> dict:
+    """``TRAIN_WARMUP`` warm-up steps and ``TRAIN_STEPS`` timed ones, every
+    launch count set to 0 just before the timed steps and read just after;
+    fails if a counted kernel was never launched or the step is not finite.
+    Returns the launches."""
     import os
 
     import torch
 
-    from mxdetection_tpu_torch.config import load_config
-    from mxdetection_tpu_torch.train.trainer import Trainer
-
-    small_train_parity(device)
-    cfg = load_config("faster_rcnn_r50_fpn_1x", {"data.batch_size_per_device": MAIN_BATCH})
-    t0 = time.perf_counter()
-    # steps per epoch of COCO train2017 (117,266 images with annotations)
-    trainer = Trainer(cfg, device=device, seed=0, steps_per_epoch=117266 // MAIN_BATCH)
-    log(f"train path: {cfg.name}, f32 master weights, {cfg.backbone.dtype} compute, seeded "
-        f"init in {time.perf_counter() - t0:.1f} s")
-    batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
-    log(f"train path: {int(batch['gt_valid'].sum())} gt boxes in the batch of {MAIN_BATCH}")
+    log(f"{what}: {int(batch['gt_valid'].sum())} gt boxes in the batch of {MAIN_BATCH}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_WARMUP):
         t0 = time.perf_counter()
         m = trainer.run_step(batch)
         torch.cuda.synchronize()
-        log(f"train path warm-up step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        log(f"{what} warm-up step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
             f"loss {float(m['loss']):.4f}")
     for c in counters:
         c.reset()
@@ -1133,25 +1172,284 @@ def phase_train_path(device, card: str, counters, profile_dir: str | None) -> di
     launches = {c.name: c.n for c in counters}
     for name, n in launches.items():
         if n == 0:
-            fail(f"training path never launched the {name} kernel")
+            fail(f"{what} never launched the {name} kernel")
     if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
-        fail(f"training path: loss {float(m['loss'])}, grad norm {float(m['grad_norm'])}")
+        fail(f"{what}: loss {float(m['loss'])}, grad norm {float(m['grad_norm'])}")
     q = torch.tensor(times).quantile(torch.tensor([0.25, 0.5, 0.75])).tolist()
-    log(f"train path ms per step ({card}): " + ", ".join(f"{ms:.2f}" for ms in times))
-    log(f"train path: {TRAIN_STEPS} steps of {MAIN_BATCH}x832x1344 bf16, ms per step: "
+    log(f"{what} ms per step ({card}): " + ", ".join(f"{ms:.2f}" for ms in times))
+    log(f"{what}: {TRAIN_STEPS} steps of {MAIN_BATCH}x832x1344 bf16, ms per step: "
         f"p25 {q[0]:.2f}, median {q[1]:.2f}, p75 {q[2]:.2f}, max {max(times):.2f}; "
         f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-    log(f"train path: losses {', '.join(f'{x:.4f}' for x in losses)}; last step "
+    log(f"{what}: losses {', '.join(f'{x:.4f}' for x in losses)}; last step "
         + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(m.items()))
         + f"; launches per step {({k: n / TRAIN_STEPS for k, n in launches.items()})}")
     if profile_dir is not None:
         stages = train_stage_breakdown(trainer, batch, reps=3)
         total = sum(stages.values())
         for name, ms in stages.items():
-            log(f"profile train stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
-        trace(lambda: trainer.run_step(batch), 2, "train step",
-              os.path.join(profile_dir, "train_step_trace.json.gz"))
+            log(f"profile {what} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+        trace(lambda: trainer.run_step(batch), 2, f"{what} step",
+              os.path.join(profile_dir, trace_name))
+    return launches
+
+
+def phase_train_path(device, card: str, counters, profile_dir: str | None) -> dict:
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    small_train_parity(device)
+    cfg = load_config("faster_rcnn_r50_fpn_1x", {"data.batch_size_per_device": MAIN_BATCH})
+    t0 = time.perf_counter()
+    # steps per epoch of COCO train2017 (117,266 images with annotations)
+    trainer = Trainer(cfg, device=device, seed=0, steps_per_epoch=117266 // MAIN_BATCH)
+    log(f"train path: {cfg.name}, f32 master weights, {cfg.backbone.dtype} compute, seeded "
+        f"init in {time.perf_counter() - t0:.1f} s")
+    batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
+    return drive_train(trainer, batch, counters, card, "train path", profile_dir,
+                       "train_step_trace.json.gz")
+
+
+# --------------------------------------------------------------------------
+# phase 10: K6 + K6b, K7 + K7b
+
+
+def dcn_bwd_bounds(off, h: int, w: int, c: int, stride: int, dtype) -> tuple:
+    """(K6's, K7's) (least ms, bound by) on these offsets. K6 reads x,
+    offsets and dpatch once and writes the patches and doffsets once, and
+    does about 21 f32 operations per sampled value (the blend's 7, two
+    derivative terms of 7); K7 reads dpatch and the offsets and writes an
+    f32 dx once, and does a multiply and an add for each channel of each
+    corner inside the map with a nonzero weight, counted on these offsets."""
+    import torch
+
+    from mxdetection_tpu_torch.ops.dcn import _bilinear_weights, _corners
+
+    b, ho, wo = off.shape[:3]
+    m = b * ho * wo
+    size = 2 if dtype == torch.bfloat16 else 4
+    ly, lx, corners = _corners((b, h, w), off, kernel=3, stride=stride, dilation=1, radius=None)
+    live = sum(int(((wgt * inb) != 0).sum()) for (_, inb), wgt in
+               zip(corners, _bilinear_weights(ly, lx)))
+    k6 = bound(b * h * w * c * size + m * 18 * 4 + 2 * m * 9 * c * size + m * 18 * 4,
+               21.0 * m * 9 * c)
+    k7 = bound(m * 9 * c * size + m * 18 * 4 + b * h * w * c * 4, 2.0 * live * c)
+    return k6, k7
+
+
+def rel_norm(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm().clamp(min=1e-30))
+
+
+def phase_deform_conv_bwd(device) -> dict:
+    """K6/K6b and K7/K7b against their plain versions at the six DCN layer
+    shapes of the cascade path, batch 8, offsets of std 1.5 cells: f32
+    within 1e-4 of the largest gradient; the whole bf16 backward
+    (``DeformConvFunction``) against the f32 plain one, norm-relative under
+    3 % for dx and dW and 6 % for doffsets. Times each kernel, its plain
+    version and cuDNN's conv backward of the same shape (dgrad beside K7,
+    wgrad beside K6: the same function only at zero offsets)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxdetection_tpu_torch.ops import dcn as tdcn
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import (deform_col2im_cuda,
+                                                            deform_patches_doffsets_cuda)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(20)
+    b = MAIN_BATCH
+    conv_bwd = torch.ops.aten.convolution_backward
+    empty = lambda: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,  # noqa: E731
+                     "library_ms": 0.0, "bound_ms_by": {"bytes": 0.0, "operations": 0.0},
+                     "by_shape": {}}
+    res = {(kind, stride): empty() for kind in ("k6", "k7") for stride in (1, 2)}
+    for stage, h, w, c, stride, n in DCN_LAYERS:
+        ho, wo = -(-h // stride), -(-w // stride)
+        shape = f"{stage} s{stride} {h}x{w}x{c}"
+        x32 = torch.randn((b, h, w, c), generator=gen).to(device)
+        off = (torch.randn((b, ho, wo, 18), generator=gen) * 1.5).to(device)
+        w32 = (torch.randn((3, 3, c, c), generator=gen) * (2.0 / (9 * c)) ** 0.5).to(device)
+        g32 = torch.randn((b, ho, wo, c), generator=gen).to(device)
+        kw = dict(stride=stride)
+
+        # f32: each kernel against its plain version on the same dpatch
+        dp32 = (g32.reshape(-1, c) @ w32.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
+        p_ref, d_ref = tdcn.deform_patches_doffsets(x32, off, dp32, **kw)
+        p_got, d_got = deform_patches_doffsets_cuda(x32, off, dp32, **kw)
+        dx_ref = tdcn.deform_col2im(dp32, off, x32.shape, **kw)
+        dx_got = deform_col2im_cuda(dp32, off, x32.shape, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, ref in (("patches", p_got, p_ref), ("doffsets", d_got, d_ref),
+                               ("dx", dx_got, dx_ref)):
+            errs[name] = ((got - ref).abs().max().item(), ref.abs().max().item())
+            if not torch.isfinite(got).all() or errs[name][0] > 1e-4 * errs[name][1]:
+                fail(f"K6/K7 {shape} f32 {name}: max_abs_err {errs[name][0]:.3e} of max|ref| "
+                     f"{errs[name][1]:.3e} (bound 1e-4 max|ref|)")
+        dw_ref = p_ref.reshape(-1, 9 * c).t() @ g32.reshape(-1, c)
+        del p_ref, p_got
+
+        # bf16: the Function's backward on the card against the f32 plain one
+        x16, w16, g16 = (t.bfloat16().requires_grad_() for t in (x32, w32, g32))
+        off16 = off.clone().requires_grad_()
+        tdcn.deform_conv2d_batched(x16, off16, w16, **kw).backward(g16)
+        torch.cuda.synchronize()
+        rel = {"dx": rel_norm(x16.grad, dx_ref), "doffsets": rel_norm(off16.grad, d_ref),
+               "dW": rel_norm(w16.grad, dw_ref.reshape(3, 3, c, c))}
+        ok16 = rel["dx"] < 0.03 and rel["dW"] < 0.03 and rel["doffsets"] < 0.06
+        del dx_ref, d_ref, dw_ref, dx_got, d_got
+
+        x16, w16, g16 = x16.detach(), w16.detach(), g16.detach()
+        dp16 = (g16.reshape(-1, c) @ w16.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
+        k6 = lambda: deform_patches_doffsets_cuda(x16, off, dp16, **kw)  # noqa: E731
+        k6_plain = lambda: tdcn.deform_patches_doffsets(x16, off, dp16, **kw)  # noqa: E731
+        k7 = lambda: deform_col2im_cuda(dp16, off, x16.shape, **kw)  # noqa: E731
+        k7_plain = lambda: tdcn.deform_col2im(dp16, off, x16.shape, **kw)  # noqa: E731
+        xc = x16.permute(0, 3, 1, 2)  # NCHW views of NHWC memory: channels_last
+        gc = g16.permute(0, 3, 1, 2)
+        wc = w16.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cudnn = lambda mask: lambda: conv_bwd(gc, xc, wc, None, [stride] * 2, [1, 1],  # noqa: E731
+                                              [1, 1], False, [0, 0], 1, mask)
+        leaves = [t.clone().requires_grad_() for t in (x16, off, w16)]
+        out = tdcn.deform_conv2d_batched(*leaves, **kw)
+        whole = lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True)  # noqa: E731
+        g2, w2, p2 = g16.reshape(-1, c), w16.reshape(9 * c, c), k6()[0].reshape(-1, 9 * c)
+        plain6, plain7 = time_ms(k6_plain, reps=3, warmup=1), time_ms(k7_plain, reps=3, warmup=1)
+        t = {"k6": time_ms(k6), "k7": time_ms(k7),
+             "wgrad": time_ms(cudnn([False, True, False])),
+             "dgrad": time_ms(cudnn([True, False, False])),
+             "whole": time_ms(whole), "cudnn": time_ms(cudnn([True, True, False])),
+             "dpatch_mm": time_ms(lambda: torch.matmul(g2, w2.t())),
+             "dw_mm": time_ms(lambda: tdcn._matmul_f32(p2.t(), g2))}
+        plain6 = (plain6 + time_ms(k6_plain, reps=3, warmup=1)) / 2
+        plain7 = (plain7 + time_ms(k7_plain, reps=3, warmup=1)) / 2
+        (b6, by6), (b7, by7) = dcn_bwd_bounds(off, h, w, c, stride, torch.bfloat16)
+        tag = "b" if stride == 2 else ""
+        log(f"K6{tag}/K7{tag} {shape} -> {ho}x{wo}, x{n} a batch: f32 max_abs_err patches "
+            f"{errs['patches'][0]:.3e} (identical: {errs['patches'][0] == 0.0}), doffsets "
+            f"{errs['doffsets'][0]:.3e} of {errs['doffsets'][1]:.3e}, dx {errs['dx'][0]:.3e} of "
+            f"{errs['dx'][1]:.3e} (<= 1e-4 max|ref|: ok); bf16 backward vs f32 plain, "
+            f"norm-relative: dx {rel['dx']:.4f}, dW {rel['dW']:.4f} (< 0.03), doffsets "
+            f"{rel['doffsets']:.4f} (< 0.06): {'ok' if ok16 else 'FAILED'}")
+        log(f"K6{tag} bf16 {t['k6']:.4f} ms, plain {plain6:.4f} ms, cuDNN wgrad "
+            f"{t['wgrad']:.4f} ms, bound {b6:.4f} ms ({by6}); K7{tag} bf16 {t['k7']:.4f} ms, "
+            f"plain {plain7:.4f} ms, cuDNN dgrad {t['dgrad']:.4f} ms, bound {b7:.4f} ms "
+            f"({by7}); whole DCN backward {t['whole']:.4f} ms (matmuls dpatch = g W^T "
+            f"{t['dpatch_mm']:.4f} ms, dW = patches^T g {t['dw_mm']:.4f} ms), cuDNN conv "
+            f"backward {t['cudnn']:.4f} ms ({shape})")
+        if not ok16:
+            fail(f"the bf16 DCN backward disagrees with the f32 plain one at {shape}")
+        for kind, ms, plain_ms, lib_ms, bnd, by, err in (
+                ("k6", t["k6"], plain6, t["wgrad"], b6, by6, errs["doffsets"][0]),
+                ("k7", t["k7"], plain7, t["dgrad"], b7, by7, errs["dx"][0])):
+            r = res[(kind, stride)]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
+                         ("library_ms", lib_ms)):
+                r[k] += n * v  # per step of the cascade path
+            r["bound_ms_by"][by] += n * bnd
+            r["bound_by"] = max(r["bound_ms_by"], key=r["bound_ms_by"].get)
+            r["by_shape"][shape] = {"layers": n, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
+                                    "whole_bwd_ms": t["whole"], "cudnn_bwd_ms": t["cudnn"],
+                                    "dpatch_mm_ms": t["dpatch_mm"], "dw_mm_ms": t["dw_mm"]}
+        del x32, off, w32, g32, dp32, x16, w16, g16, dp16, leaves, out, off16, g2, w2, p2
+        torch.cuda.empty_cache()
+
+    # radius 3 and zero offsets, in f32, at a stage-3 shape
+    x = torch.randn((b, 52, 84, 256), generator=gen).to(device)
+    off = (torch.randn((b, 52, 84, 18), generator=gen) * 1.5).to(device)
+    wt = (torch.randn((3, 3, 256, 256), generator=gen) * (2.0 / (9 * 256)) ** 0.5).to(device)
+    g = torch.randn((b, 52, 84, 256), generator=gen).to(device)
+    dp = (g.reshape(-1, 256) @ wt.reshape(-1, 256).t()).reshape(b, 52, 84, -1)
+    checks = [("radius 3 doffsets", deform_patches_doffsets_cuda(x, off, dp, radius=3)[1],
+               tdcn.deform_patches_doffsets(x, off, dp, radius=3)[1]),
+              ("radius 3 dx", deform_col2im_cuda(dp, off, x.shape, radius=3),
+               tdcn.deform_col2im(dp, off, x.shape, radius=3))]
+    if checks[0][1][off.abs() > 3].abs().max().item() != 0.0:
+        fail("K6 radius 3: a nonzero offset gradient beyond the clamp")
+    leaves = [t.clone().requires_grad_() for t in (x, torch.zeros_like(off), wt)]
+    tdcn.deform_conv2d_batched(*leaves).backward(g)
+    xc, wc = x.permute(0, 3, 1, 2).requires_grad_(), wt.permute(3, 2, 0, 1).requires_grad_()
+    F.conv2d(xc, wc, padding=1).permute(0, 2, 3, 1).backward(g)
+    checks += [("zero offsets dx vs F.conv2d", leaves[0].grad, xc.grad.permute(0, 2, 3, 1)),
+               ("zero offsets dW vs F.conv2d", leaves[2].grad, wc.grad.permute(2, 3, 1, 0))]
+    torch.cuda.synchronize()
+    for what, got, ref in checks:
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        log(f"K6/K7 {what} (f32): max_abs_err {err:.3e} of max|ref| {scale:.3e} "
+            f"(<= 1e-4 max|ref|: {'ok' if err <= 1e-4 * scale else 'FAILED'})")
+        if not err <= 1e-4 * scale:
+            fail(f"K6/K7 {what}: disagrees with its reference")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 11: the Cascade R-CNN R101-DCN training path
+
+
+def first_dcn_of_each_stage(state: dict) -> dict:
+    """``state`` with every offset conv zeroed but those of the first block
+    of stages 2-4 (noise in all 30 DCN layers makes a random-weight net
+    chaotic, so that a card-vs-CPU check would measure summation order)."""
+    import torch
+
+    keep = tuple(f"backbone.layer{s}_block0." for s in (2, 3, 4))
+    return {k: (v if ".offset_conv." not in k or k.startswith(keep) else torch.zeros_like(v))
+            for k, v in state.items()}
+
+
+def phase_cascade_train_path(device, card: str, counters, profile_dir: str | None) -> dict:
+    """Cascade R-CNN R101-DCN training: seed 0 weights whose offset convs
+    are calibrated on a full-size batch as the inference path's (offsets of
+    std about 1 cell), a card-vs-CPU f32 step at 256x320 with that noise in
+    the first DCN of each stage, then ``Trainer.run_step`` at 8x832x1344 in
+    bf16."""
+    import copy
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(CASCADE, {"data.batch_size_per_device": MAIN_BATCH})
+    small = cfg.override(**SMALL_TRAIN_OVERRIDES)
+    t0 = time.perf_counter()
+    model = build_detector(small, device="cpu", seed=0, train=True)  # f32 everywhere
+    log(f"cascade train path: {cfg.name}, seeded init in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(12)
+    raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
+                        dtype=torch.uint8).to(device)
+    hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
+    gpu_model = copy.deepcopy(model).to(device)
+    seed_offset_convs(gpu_model, cfg, raw, hw, torch.Generator().manual_seed(11))
+    state = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+    del model, gpu_model
+
+    small_train_parity(device, CASCADE, first_dcn_of_each_stage(state),
+                       "cascade small f32 train step")
+
+    model = build_detector(cfg, device="cpu", train=True)
+    model.load_state_dict(state)
+    trainer = Trainer(cfg, model, device=device, steps_per_epoch=117266 // MAIN_BATCH)
+    log(f"cascade train path: f32 master weights, {cfg.backbone.dtype} compute, "
+        f"{len(dcn_layers(trainer.model))} DCN layers, offset convs seeded as above")
+    batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
+    launches = drive_train(trainer, batch, counters, card, "cascade train path", profile_dir,
+                           "cascade_train_trace.json.gz")
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    want = {"deform_conv": 27, "deform_conv_s2": 3, "deform_patches_doffsets": 27,
+            "deform_patches_doffsets_s2": 3, "deform_col2im": 27, "deform_col2im_s2": 3}
+    if any(per_step.get(k) != v for k, v in want.items()):
+        fail(f"cascade train path: expected {want} launches a step, got {per_step}")
     return launches
 
 
@@ -1195,6 +1493,13 @@ def main() -> int:
     paths["train"] = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.convert_launch_count, iou_cuda.launch_count], args.profile)
+    k67 = phase_deform_conv_bwd(device)
+    paths["cascade_train"] = phase_cascade_train_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
+        roi_cuda.convert_launch_count, iou_cuda.launch_count, dcn_cuda.launch_count,
+        dcn_cuda.s2_launch_count, dcn_cuda.patches_launch_count,
+        dcn_cuda.patches_s2_launch_count, dcn_cuda.col2im_launch_count,
+        dcn_cuda.col2im_s2_launch_count], args.profile)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res
@@ -1220,7 +1525,14 @@ def main() -> int:
          "by_shape": k5[1]["by_shape"]},
         {**entry("deform_conv_s2", "deform_conv.cu", K5B_REPLACES, "deform_conv_s2", k5[2]),
          "by_shape": k5[2]["by_shape"]},
-    ]
+        # per step of the cascade training path; library_ms is cuDNN's wgrad
+        # (beside K6) and dgrad (beside K7) of the same shapes
+    ] + [{**entry(name, "deform_conv_bwd.cu", replaces, name, k67[key]),
+          "by_shape": k67[key]["by_shape"]} for name, replaces, key in (
+              ("deform_patches_doffsets", K6_REPLACES, ("k6", 1)),
+              ("deform_patches_doffsets_s2", K6B_REPLACES, ("k6", 2)),
+              ("deform_col2im", K7_REPLACES, ("k7", 1)),
+              ("deform_col2im_s2", K7B_REPLACES, ("k7", 2)))]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,15 +4,11 @@
 // _kernel (K5, stride 1, :43) and _kernel_s2 (K5b, stride 2, :622). Both
 // compute out = patches(x, offsets) @ W for a 3x3 DCNv1 layer; this one
 // source does both, with stride and dilation as arguments. Semantics are
-// those of the plain version, mxdetection_tpu_torch/ops/dcn.py::deform_conv2d
-// (the port of the JAX gather path, mxdetection_tpu/ops/dcn.py:24-95):
-//   sy = (i*stride + ty*dil - pad) + dy, y0 = floor(sy), ly = sy - y0 (x alike);
-//   corner weights (1-ly)(1-lx), (1-ly)lx, ly(1-lx), ly*lx, each zero when its
-//   corner lies outside the map; the patch value is the f32 sum of the four
-//   corner products in that order, rounded to the compute dtype; the product
-//   with W accumulates in f32 and is written once in the compute dtype.
-// Offsets are exact unless radius >= 0, which clamps them to +-radius first
-// (the Pallas kernels' documented deviation, R = 3).
+// those of the plain version, mxdetection_tpu_torch/ops/dcn.py::deform_conv2d;
+// the tap samples and the four-corner blend live in deform_common.cuh, shared
+// with the backward (csrc/deform_conv_bwd.cu). The patch value is rounded to
+// the compute dtype; the product with W accumulates in f32 and is written
+// once in the compute dtype.
 //
 // What the TPU kernels did to fit VMEM and the MXU (row windows, the
 // (2R+2)^2 dense displacement walk, the column-parity split of K5b) has no
@@ -51,22 +47,16 @@
 
 #include <type_traits>
 
+#include "deform_common.cuh"
+
 namespace {
+
+using namespace mxdet_dcn;
 
 constexpr int kBM = 64;       // output pixels per block
 constexpr int kBN = 64;       // output channels per block
 constexpr int kBK = 64;       // input channels per chunk
 constexpr int kThreads = 128;
-constexpr int kTaps = 9;      // 3x3
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <typename T>
 struct Smem {
@@ -78,21 +68,13 @@ struct Smem {
   long long corner_off[4][kBM];                 // element offset of each corner pixel
   float corner_w[4][kBM];                       // its masked bilinear weight
 };
-
-struct Geometry {
-  int H, W, Cin, Ho, Wo, Cout, M, stride, dil, pad;
-  float radius;  // < 0: no clamp
-};
-
-__device__ __forceinline__ void corner(const Geometry& g, int b, float yi, float xi, float w,
-                                       long long* off, float* wt) {
-  const float hmax = (float)(g.H - 1), wmax = (float)(g.W - 1);
-  const bool inb = yi >= 0.0f && yi <= hmax && xi >= 0.0f && xi <= wmax;
-  const int yc = (int)fminf(fmaxf(yi, 0.0f), hmax);
-  const int xc = (int)fminf(fmaxf(xi, 0.0f), wmax);
-  *off = (((long long)b * g.H + yc) * g.W + xc) * g.Cin;
-  *wt = inb ? w : 0.0f;
-}
+// Static shared memory is capped at 48 KB a block.
+static_assert(sizeof(Smem<__nv_bfloat16>) <= 48 * 1024, "bf16 tiles exceed static shared memory");
+static_assert(sizeof(Smem<float>) <= 48 * 1024, "f32 tiles exceed static shared memory");
+// Ragged tails: the rows past M (the last block's tail) are zero rows read
+// from valid addresses; the entry point refuses Cin and Cout that are not
+// whole tiles, and no 16-byte vector straddles a tile's edge.
+static_assert(kBK % 8 == 0 && kBN % 8 == 0, "a 16-byte vector never straddles a tile edge");
 
 // The four corners of tap t for the block's pixels m0 .. m0 + kBM - 1.
 template <typename T>
@@ -107,27 +89,11 @@ __device__ void tap_tables(const Geometry& g, const float* __restrict__ offsets,
       }
       continue;
     }
-    const int b = m / (g.Ho * g.Wo);
-    const int rem = m - b * g.Ho * g.Wo;
-    const int i = rem / g.Wo;
-    const int j = rem - i * g.Wo;
-    const int ty = t / 3, tx = t - 3 * (t / 3);
-    float dy = offsets[(size_t)m * (2 * kTaps) + 2 * t];
-    float dx = offsets[(size_t)m * (2 * kTaps) + 2 * t + 1];
-    if (g.radius >= 0.0f) {
-      dy = fminf(fmaxf(dy, -g.radius), g.radius);
-      dx = fminf(fmaxf(dx, -g.radius), g.radius);
+    const TapSample p = sample_tap(g, offsets, m, t);
+    for (int q = 0; q < 4; ++q) {
+      s.corner_off[q][r] = p.off[q];
+      s.corner_w[q][r] = p.w[q];
     }
-    const float sy = __fadd_rn((float)(i * g.stride + ty * g.dil - g.pad), dy);
-    const float sx = __fadd_rn((float)(j * g.stride + tx * g.dil - g.pad), dx);
-    const float y0 = floorf(sy), x0 = floorf(sx);
-    const float ly = __fsub_rn(sy, y0), lx = __fsub_rn(sx, x0);
-    const float hy = __fsub_rn(1.0f, ly), hx = __fsub_rn(1.0f, lx);
-    const float y1 = __fadd_rn(y0, 1.0f), x1 = __fadd_rn(x0, 1.0f);
-    corner(g, b, y0, x0, __fmul_rn(hy, hx), &s.corner_off[0][r], &s.corner_w[0][r]);
-    corner(g, b, y0, x1, __fmul_rn(hy, lx), &s.corner_off[1][r], &s.corner_w[1][r]);
-    corner(g, b, y1, x0, __fmul_rn(ly, hx), &s.corner_off[2][r], &s.corner_w[2][r]);
-    corner(g, b, y1, x1, __fmul_rn(ly, lx), &s.corner_off[3][r], &s.corner_w[3][r]);
   }
 }
 
@@ -155,10 +121,7 @@ __device__ void gather_a(const T* __restrict__ x, int c0, Smem<T>& s) {
       const float v01 = to_f32(reinterpret_cast<const T*>(&q[1])[e]);
       const float v10 = to_f32(reinterpret_cast<const T*>(&q[2])[e]);
       const float v11 = to_f32(reinterpret_cast<const T*>(&q[3])[e]);
-      const float sum = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(v00, w[0]), __fmul_rn(v01, w[1])),
-                                            __fmul_rn(v10, w[2])),
-                                  __fmul_rn(v11, w[3]));
-      pe[e] = from_f32<T>(sum);
+      pe[e] = from_f32<T>(blend(v00, v01, v10, v11, w));
     }
     *reinterpret_cast<uint4*>(&s.a[r][cv]) = packed;
   }

@@ -4,11 +4,12 @@ v1b: the stride of a downsampling bottleneck sits on its 3x3 conv. The stem
 is the plain 7x7/2 conv + 3x3/2 max-pool; the JAX package's opt-in
 space-to-depth stem is a TPU measure and is not ported.
 
-Deformable stages (``dcn_stages``) are ported for inference: their 3x3 is a
-``DeformConv``, whose offsets come from an f32 conv and whose sampling and
-product run in ``ops/dcn.py`` (on the card the kernel K5/K5b). Their
-backward on the card (K6, K7) is ROADMAP Queue 1 item 13b; on the CPU the
-plain version is differentiable.
+Deformable stages (``dcn_stages``): their 3x3 is a ``DeformConv``, whose
+offsets come from an f32 conv and whose sampling and product run in
+``ops/dcn.py``'s autograd Function (on the card the kernels K5/K5b forward,
+K6/K6b and K7/K7b backward; on the CPU their plain versions). The gradient
+reaches the layer's input through both branches: the sampling's dx and the
+offset conv's input gradient.
 
 Frozen stages: the activations are detached exactly where the JAX module
 puts ``stop_gradient``, after the stem's ReLU (when ``frozen_stages >= 0``)

@@ -14,9 +14,13 @@ Training (``forward_train`` + ``rcnn_loss``): the same trunk with the
 training proposal counts, then ``sample_rois`` picks the second stage's
 rois, RoIAlign (differentiable: K1 forward, K3 backward on the card) feeds
 the bbox head, and the loss assigns anchors to gt (``assign_max_iou``,
-K4's IoU) and subsamples them. The random draws of the two samplers come
-from an injectable source (``ops/matching.py``). The cascade, the mask
-branch and OHEM are ROADMAP Queue 1 items 11, 13 and 14.
+K4's IoU) and subsamples them. With ``cfg.cascade`` each stage after the
+first takes the rois the previous stage refined (decoded from its detached
+deltas) and labels them by IoU at its threshold (``relabel_rois``, K4's IoU,
+no subsampling); the loss weighs stage i by ``stage_loss_weights[i]``. The
+random draws of the two samplers come from an injectable source
+(``ops/matching.py``). The mask branch and OHEM are ROADMAP Queue 1 items
+11 and 14.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ...ops import anchors as anchor_lib
 from ...ops import boxes as box_lib
 from ...ops import matching
 from ...ops import nms as nms_lib
+from ...ops.iou import pairwise_iou_batched
 from ...ops.proposals import generate_proposals
 from ...ops.roi_align import multilevel_roi_align
 from ..backbones.resnet import ResNet
@@ -69,6 +74,23 @@ def batched_roi_align(pyramid: list, rois: torch.Tensor, valid: torch.Tensor, cf
         sampling_ratio=r.sampling_ratio, min_level=r.min_level,
         canonical_scale=r.canonical_scale, canonical_level=r.canonical_level,
         roi_valid=valid)
+
+
+def relabel_rois(rois: torch.Tensor, roi_valid: torch.Tensor, gt_boxes: torch.Tensor,
+                 gt_labels1: torch.Tensor, gt_valid: torch.Tensor, iou_thr: float) -> tuple:
+    """Cascade stage re-assignment, batched over images: rois (B, R, 4),
+    roi_valid (B, R), gt (B, G, ...) -> (labels (B, R) int32, matched
+    (B, R), pos (B, R)). A roi is positive when its best IoU with a valid gt
+    reaches ``iou_thr`` (invalid gt count IoU -1; ties go to the first gt),
+    labelled with that gt's 1-based class; other valid rois are background
+    (0), invalid rois -1. No subsampling, as the cascade's targets."""
+    iou = pairwise_iou_batched(rois.float().contiguous(), gt_boxes.float())
+    iou.masked_fill_(~gt_valid[:, None, :], -1.0)
+    max_iou, matched = iou.max(dim=-1)  # first index on ties, as jnp.argmax
+    pos = roi_valid & (max_iou >= iou_thr)
+    labels = torch.where(pos, torch.gather(gt_labels1, 1, matched), 0)
+    labels = torch.where(roi_valid, labels, -1).to(torch.int32)
+    return labels, matched, pos
 
 
 def decode_stage_boxes(rois: torch.Tensor, deltas: torch.Tensor, stds,
@@ -170,12 +192,8 @@ class RCNN(nn.Module):
     def forward_train(self, tb: dict, draws: matching.Draws) -> dict:
         """tb: images (B, H, W, 3), im_info (B, 3), gt_boxes (B, G, 4) in
         network coordinates, gt_labels (B, G) 0-based, gt_valid (B, G).
-        Returns the stage-1 outputs and targets that ``rcnn_loss`` reads."""
+        Returns each stage's outputs and targets, which ``rcnn_loss`` reads."""
         c = self.cfg
-        if c.cascade:
-            raise NotImplementedError("the cascade's training step (relabel_rois, the stage "
-                                      "losses, the DCN backward kernels) is not ported yet "
-                                      "(ROADMAP Queue 1 item 13b)")
         images = tb["images"].to(self.compute_dtype)
         b = images.shape[0]
         pyramid = self.extract(images)
@@ -202,28 +220,39 @@ class RCNN(nn.Module):
             pos_iou_thr=h.pos_iou_thr, neg_iou_thr_hi=h.neg_iou_thr_hi,
             neg_iou_thr_lo=h.neg_iou_thr_lo)
 
-        roi_feats = batched_roi_align(pyramid, sampled.rois, sampled.valid_mask, c,
-                                      c.roi.output_size)
-        s = roi_feats.shape[1]
-        cls_logits, deltas = self.bbox_head0(roi_feats.reshape(b * s, *roi_feats.shape[2:]))
-        matched_gt = torch.gather(gt_boxes, 1, sampled.matched_gt[..., None].expand(b, s, 4))
-        stage = {
-            "cls_logits": cls_logits.reshape(b, s, -1), "deltas": deltas.reshape(b, s, -1),
-            "labels": sampled.labels,
-            "reg_targets": box_lib.encode_boxes(sampled.rois, matched_gt, stds=h.bbox_stds),
-            "pos": sampled.pos_mask, "valid": sampled.valid_mask, "rois": sampled.rois,
-        }
-        return {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg, "stages": [stage], "pad_hw": pad_hw}
+        stage_rois, labels, matched = sampled.rois, sampled.labels, sampled.matched_gt
+        pos, valid = sampled.pos_mask, sampled.valid_mask
+        stages = []
+        for i in range(self.num_stages):
+            roi_feats = batched_roi_align(pyramid, stage_rois, valid, c, c.roi.output_size)
+            s = roi_feats.shape[1]
+            cls_logits, deltas = self.bbox_head(i)(roi_feats.reshape(b * s, *roi_feats.shape[2:]))
+            deltas = deltas.reshape(b, s, -1)
+            matched_gt = torch.gather(gt_boxes, 1, matched[..., None].expand(b, s, 4))
+            stages.append({
+                "cls_logits": cls_logits.reshape(b, s, -1), "deltas": deltas, "labels": labels,
+                "reg_targets": box_lib.encode_boxes(stage_rois, matched_gt,
+                                                    stds=self._stage_stds(i)),
+                "pos": pos, "valid": valid, "rois": stage_rois,
+            })
+            if i + 1 < self.num_stages:  # refine from detached deltas, then relabel
+                stage_rois = decode_stage_boxes(stage_rois, deltas.detach(),
+                                                self._stage_stds(i), resized_hw)
+                labels, matched, pos = relabel_rois(stage_rois, valid, gt_boxes, gt_labels1,
+                                                    gt_valid, c.cascade.stage_iou_thrs[i + 1])
+        return {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg, "stages": stages, "pad_hw": pad_hw}
 
 
 def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tuple:
-    """RPN + stage-1 losses of ``forward_train``'s outputs -> (total, metrics).
+    """RPN + stage losses of ``forward_train``'s outputs -> (total, metrics).
 
     The RPN assigns every anchor inside the resized image to gt (low-quality
     force on), subsamples ``rpn.batch_size`` of them, and takes BCE on the
-    objectness and smooth-L1 (beta 1/9) on the positives' deltas; the second
-    stage takes softmax CE over the sampled rois and smooth-L1 on the
-    positives' class-specific deltas. Everything is f32, as the JAX loss.
+    objectness and smooth-L1 (beta 1/9) on the positives' deltas; each
+    second stage takes softmax CE over its rois and smooth-L1 on the
+    positives' class-specific (cascade: class-agnostic) deltas, and adds to
+    the total weighted by ``cascade.stage_loss_weights`` (1 without a
+    cascade). Everything is f32, as the JAX loss.
     """
     c = cfg
     if c.bbox_head.ohem:
@@ -261,6 +290,7 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
 
     num_classes = c.bbox_head.num_classes
     for i, st in enumerate(outputs["stages"]):
+        w = c.cascade.stage_loss_weights[i] if c.cascade else 1.0
         cls, labels_i, valid, pos_i = st["cls_logits"], st["labels"], st["valid"], st["pos"]
         safe = labels_i.long().clamp(0, num_classes)
         nll = -torch.gather(F.log_softmax(cls, dim=-1), -1, safe[..., None])[..., 0]
@@ -276,7 +306,7 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
         metrics[f"loss_rcnn_cls{i}"] = (nll.sum(-1) / norm).mean()
         metrics[f"loss_rcnn_reg{i}"] = (l1.sum(-1) / norm).mean() * c.bbox_head.loss_bbox_weight
         metrics[f"rcnn_acc{i}"] = acc.mean()
-        total = total + metrics[f"loss_rcnn_cls{i}"] + metrics[f"loss_rcnn_reg{i}"]
+        total = total + w * (metrics[f"loss_rcnn_cls{i}"] + metrics[f"loss_rcnn_reg{i}"])
     metrics["num_pos_rois"] = outputs["stages"][0]["pos"].sum(1).float().mean()
     return total, metrics
 

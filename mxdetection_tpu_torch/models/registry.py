@@ -1,7 +1,6 @@
 """Detector registry — port of ``mxdetection_tpu.models.registry`` for the
-detectors ported so far: Faster R-CNN (inference and training) and Cascade
-R-CNN with deformable convs (inference; its training is ROADMAP Queue 1
-item 13b)."""
+detectors ported so far: Faster R-CNN and Cascade R-CNN with deformable
+convs, inference and training."""
 
 from __future__ import annotations
 
@@ -26,9 +25,11 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
 
     ``train=False``: an eval-mode model whose parameters are stored in the
     compute dtype, but for the deformable convs' offset convs, which stay
-    f32 as the JAX layer's (sample positions depend on them). ``train=True``: a train-mode model whose parameters stay
-    f32 master weights, cast to the compute dtype where they are read, as
-    flax's ``param_dtype=float32, dtype=bfloat16``. With ``seed`` the
+    f32 as the JAX layer's (sample positions depend on them).
+    ``train=True``: a train-mode model whose parameters all stay f32 master
+    weights, cast to the compute dtype where they are read, as flax's
+    ``param_dtype=float32, dtype=bfloat16`` (the offset convs compute in
+    f32). With ``seed`` the
     weights get the JAX package's initialisers from a ``torch.Generator``
     (the card has no JAX to convert weights from); otherwise load a
     converted ``state_dict`` (``utils/convert.py``)."""

@@ -3,8 +3,9 @@
 ``nvcc`` compiles every source of ``csrc/`` into an object, one process per
 source, all started together, and links the objects into one shared library
 with a plain C interface, ``_build/libmxdet_kernels_<hash>.so`` inside the
-package, at first use; the hash covers the sources and the flags, so an edit
-rebuilds and an unchanged tree reuses the library. The library is loaded
+package, at first use; the hash covers the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged tree
+reuses the library. The library is loaded
 with ``ctypes``; nothing includes PyTorch's headers, which keeps a build to
 seconds. Nothing here runs at import time.
 
@@ -64,7 +65,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libmxdet_kernels_{h.hexdigest()[:16]}.so")
@@ -120,8 +121,11 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
     lib.mxdet_pairwise_iou.argtypes = [p, ll, p, i, i, i, p, p]
     lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
+    lib.mxdet_deform_patches_doffsets.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+    lib.mxdet_deform_col2im.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_f32_to_bf16,
-               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou, lib.mxdet_deform_conv_fwd):
+               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou, lib.mxdet_deform_conv_fwd,
+               lib.mxdet_deform_patches_doffsets, lib.mxdet_deform_col2im):
         fn.restype = i
     return lib
 

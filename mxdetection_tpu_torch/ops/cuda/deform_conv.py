@@ -1,11 +1,20 @@
-"""Wrapper of the CUDA deformable-conv kernel (``csrc/deform_conv.cu``).
+"""Wrappers of the CUDA deformable-conv kernels (``csrc/deform_conv.cu``,
+``csrc/deform_conv_bwd.cu``).
 
-Counterpart of ``mxdetection_tpu/ops/pallas/dcn.py``: ``_kernel`` (K5,
-``deform_conv2d_pallas_batched``, stride 1) and ``_kernel_s2`` (K5b,
-``deform_conv2d_s2_pallas_batched``, stride 2), both the inference forward.
-Reached from ``ops/dcn.py::deform_conv2d_batched`` for CUDA tensors; the
-plain version is ``ops/dcn.py::deform_conv2d``. One kernel serves both
-strides; each stride has its own launch counter.
+Counterparts of ``mxdetection_tpu/ops/pallas/dcn.py``:
+
+- ``deform_conv2d_cuda``: ``_kernel`` (K5, stride 1) and ``_kernel_s2``
+  (K5b, stride 2), the forward;
+- ``deform_patches_doffsets_cuda``: ``_patches_kernel`` (K6) and
+  ``_patches_kernel_s2`` (K6b), the patches rebuilt for dW with the offset
+  gradient reduced over channels in the same pass;
+- ``deform_col2im_cuda``: ``_dx_kernel`` (K7) and ``_dx_kernel_s2`` (K7b),
+  dx as the transpose of the sampling.
+
+Reached from ``ops/dcn.py::DeformConvFunction`` for CUDA tensors; the plain
+versions are ``ops/dcn.py::deform_conv2d``, ``deform_patches_doffsets`` and
+``deform_col2im``. One kernel serves both strides; each stride has its own
+launch counter.
 """
 
 from __future__ import annotations
@@ -16,9 +25,53 @@ from .build import LaunchCount, check, load_library
 
 launch_count = LaunchCount("deform_conv")        # K5, stride 1
 s2_launch_count = LaunchCount("deform_conv_s2")  # K5b, stride 2
+patches_launch_count = LaunchCount("deform_patches_doffsets")        # K6
+patches_s2_launch_count = LaunchCount("deform_patches_doffsets_s2")  # K6b
+col2im_launch_count = LaunchCount("deform_col2im")                   # K7
+col2im_s2_launch_count = LaunchCount("deform_col2im_s2")             # K7b
 
 _DTYPES = (torch.float32, torch.bfloat16)
-TILE_K, TILE_N = 64, 64  # Cin is walked in chunks of TILE_K; Cout in tiles of TILE_N
+TILE_K, TILE_N = 64, 64  # the forward walks Cin in chunks of TILE_K, Cout in tiles of TILE_N
+VEC = 4                  # the backward walks channels in vectors of VEC
+
+
+def _check_geometry(what: str, x_shape, offsets: torch.Tensor, stride: int,
+                    dilation: int) -> tuple:
+    """-> (B, H, W, C, Ho, Wo) after checking the offsets against x's shape."""
+    if offsets.dtype != torch.float32:
+        raise TypeError(f"{what}: offsets must be float32, got {offsets.dtype}")
+    if len(x_shape) != 4:
+        raise ValueError(f"{what}: x shape {tuple(x_shape)}, expected (B, H, W, C)")
+    b, h, w, c = x_shape
+    if stride not in (1, 2) or dilation < 1:
+        raise ValueError(f"{what}: stride {stride} (1 or 2), dilation {dilation}")
+    ho, wo = -(-h // stride), -(-w // stride)
+    if offsets.shape != (b, ho, wo, 18):
+        raise ValueError(f"{what}: offsets {tuple(offsets.shape)}, expected {(b, ho, wo, 18)}")
+    if not offsets.is_contiguous():
+        raise ValueError(f"{what}: offsets must be contiguous")
+    return b, h, w, c, ho, wo
+
+
+def _check_device(what: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: tensors on {[str(t.device) for t in tensors]}; expected "
+                         "one CUDA device")
+    return dev
+
+
+def _radius(radius: float | None) -> float:
+    return -1.0 if radius is None else float(radius)
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call the library's C entry point ``name`` on ``dev``'s current stream
+    and raise if the launch failed."""
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(err, name)
 
 
 def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, *,
@@ -27,43 +80,80 @@ def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Ten
     """x (B, H, W, Cin) contiguous, f32 or bf16; offsets (B, Ho, Wo, 18) f32,
     Ho = ceil(H / stride); weight (3, 3, Cin, Cout) HWIO in x's dtype ->
     (B, Ho, Wo, Cout) in x's dtype. ``radius`` clamps the offsets."""
+    what = "deform_conv2d_cuda"
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
-        raise TypeError(f"deform_conv2d_cuda: x {x.dtype} and weight {weight.dtype} must be "
-                        f"one dtype of {_DTYPES}")
-    if offsets.dtype != torch.float32:
-        raise TypeError(f"deform_conv2d_cuda: offsets must be float32, got {offsets.dtype}")
+        raise TypeError(f"{what}: x {x.dtype} and weight {weight.dtype} must be one dtype of "
+                        f"{_DTYPES}")
     if x.dim() != 4 or weight.dim() != 4 or weight.shape[:2] != (3, 3):
-        raise ValueError(f"deform_conv2d_cuda: x {tuple(x.shape)}, weight "
-                         f"{tuple(weight.shape)}; expected (B, H, W, Cin), (3, 3, Cin, Cout)")
-    b, h, w, cin = x.shape
+        raise ValueError(f"{what}: x {tuple(x.shape)}, weight {tuple(weight.shape)}; expected "
+                         "(B, H, W, Cin), (3, 3, Cin, Cout)")
+    b, h, w, cin, ho, wo = _check_geometry(what, x.shape, offsets, stride, dilation)
     cout = weight.shape[3]
-    if stride not in (1, 2) or dilation < 1:
-        raise ValueError(f"deform_conv2d_cuda: stride {stride} (1 or 2), dilation {dilation}")
-    ho, wo = -(-h // stride), -(-w // stride)
     if weight.shape[2] != cin or cin % TILE_K or cout % TILE_N:
-        raise ValueError(f"deform_conv2d_cuda: Cin={cin}, Cout={cout}; the weight must take "
-                         f"x's channels, Cin a multiple of {TILE_K} and Cout of {TILE_N}")
-    if offsets.shape != (b, ho, wo, 18):
-        raise ValueError(f"deform_conv2d_cuda: offsets {tuple(offsets.shape)}, expected "
-                         f"{(b, ho, wo, 18)}")
-    if not (x.is_contiguous() and offsets.is_contiguous()) or x.data_ptr() % 16:
-        raise ValueError("deform_conv2d_cuda: x and offsets must be contiguous NHWC, x "
-                         "16-byte aligned")
-    dev = x.device
-    if dev.type != "cuda" or offsets.device != dev or weight.device != dev:
-        raise ValueError(f"deform_conv2d_cuda: x, offsets and weight on {dev}, "
-                         f"{offsets.device}, {weight.device}; expected one CUDA device")
+        raise ValueError(f"{what}: Cin={cin}, Cout={cout}; the weight must take x's channels, "
+                         f"Cin a multiple of {TILE_K} and Cout of {TILE_N}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be contiguous NHWC, 16-byte aligned")
+    dev = _check_device(what, x, offsets, weight)
     wmat = weight.reshape(9 * cin, cout).contiguous()
     if wmat.data_ptr() % 16:
         wmat = wmat.clone()
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mxdet_deform_conv_fwd(
-            x.data_ptr(), offsets.data_ptr(), wmat.data_ptr(), out.data_ptr(), b, h, w, cin,
-            ho, wo, cout, stride, dilation, -1.0 if radius is None else float(radius),
-            int(x.dtype == torch.bfloat16), stream)
-    check(err, "mxdet_deform_conv_fwd")
+    _launch("mxdet_deform_conv_fwd", dev, x.data_ptr(), offsets.data_ptr(), wmat.data_ptr(),
+            out.data_ptr(), b, h, w, cin, ho, wo, cout, stride, dilation, _radius(radius),
+            int(x.dtype == torch.bfloat16))
     (launch_count if stride == 1 else s2_launch_count).add()
     return out
+
+
+def _check_dpatch(what: str, dpatch: torch.Tensor, b: int, ho: int, wo: int, c: int) -> None:
+    if dpatch.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dpatch dtype {dpatch.dtype} not in {_DTYPES}")
+    if dpatch.shape != (b, ho, wo, 9 * c):
+        raise ValueError(f"{what}: dpatch {tuple(dpatch.shape)}, expected {(b, ho, wo, 9 * c)}")
+    if c % VEC:
+        raise ValueError(f"{what}: C={c} must be a multiple of {VEC}")
+    if not dpatch.is_contiguous() or dpatch.data_ptr() % 16:
+        raise ValueError(f"{what}: dpatch must be contiguous, 16-byte aligned")
+
+
+def deform_patches_doffsets_cuda(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor,
+                                 *, stride: int = 1, dilation: int = 1,
+                                 radius: float | None = None) -> tuple:
+    """K6 (stride 1) / K6b (stride 2): x (B, H, W, C) contiguous, f32 or
+    bf16; offsets (B, Ho, Wo, 18) f32; dpatch (B, Ho, Wo, 9C) in x's dtype ->
+    (patches (B, Ho, Wo, 9C) in x's dtype, doffsets (B, Ho, Wo, 18) f32)."""
+    what = "deform_patches_doffsets_cuda"
+    if x.dtype not in _DTYPES or dpatch.dtype != x.dtype:
+        raise TypeError(f"{what}: x {x.dtype} and dpatch {dpatch.dtype} must be one dtype of "
+                        f"{_DTYPES}")
+    b, h, w, c, ho, wo = _check_geometry(what, x.shape, offsets, stride, dilation)
+    _check_dpatch(what, dpatch, b, ho, wo, c)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be contiguous NHWC, 16-byte aligned")
+    dev = _check_device(what, x, offsets, dpatch)
+    patches = torch.empty_like(dpatch)
+    doff = torch.empty((b, ho, wo, 18), dtype=torch.float32, device=dev)
+    _launch("mxdet_deform_patches_doffsets", dev, x.data_ptr(), offsets.data_ptr(),
+            dpatch.data_ptr(), patches.data_ptr(), doff.data_ptr(), b, h, w, c, ho, wo, stride,
+            dilation, _radius(radius), int(x.dtype == torch.bfloat16))
+    (patches_launch_count if stride == 1 else patches_s2_launch_count).add()
+    return patches, doff
+
+
+def deform_col2im_cuda(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
+                       stride: int = 1, dilation: int = 1,
+                       radius: float | None = None) -> torch.Tensor:
+    """K7 (stride 1) / K7b (stride 2): dpatch (B, Ho, Wo, 9C) contiguous, f32
+    or bf16; offsets (B, Ho, Wo, 18) f32 -> dx (B, H, W, C) f32 for x of
+    ``x_shape`` (f32 atomics into a zeroed buffer; the caller casts)."""
+    what = "deform_col2im_cuda"
+    b, h, w, c, ho, wo = _check_geometry(what, tuple(x_shape), offsets, stride, dilation)
+    _check_dpatch(what, dpatch, b, ho, wo, c)
+    dev = _check_device(what, dpatch, offsets)
+    dx = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+    _launch("mxdet_deform_col2im", dev, dpatch.data_ptr(), offsets.data_ptr(), dx.data_ptr(),
+            b, h, w, c, ho, wo, stride, dilation, _radius(radius),
+            int(dpatch.dtype == torch.bfloat16))
+    (col2im_launch_count if stride == 1 else col2im_s2_launch_count).add()
+    return dx

@@ -1,25 +1,45 @@
 """Deformable convolution v1 — port of ``mxdetection_tpu.ops.dcn``.
 
-``deform_conv2d_batched`` dispatches on the device of its input: a CPU
-tensor takes ``deform_conv2d`` below, the plain version (the JAX package's
-gather formulation, batched: a bilinear gather of the k*k taps into patch
-rows, then one product with the weight); a CUDA tensor takes the
-hand-written implicit-GEMM kernel ``csrc/deform_conv.cu`` (K5 at stride 1,
-K5b at stride 2) through ``ops/cuda/deform_conv.py``; any other device
-raises. The JAX package's environment switch between its gather, shift and
-Pallas paths, and its shift-select formulation, are TPU measures and are
-not ported.
+``deform_conv2d_batched`` runs ``DeformConvFunction``, an autograd
+Function whose forward and backward dispatch on the device of the input:
+CPU tensors take the plain versions below, CUDA tensors the hand-written
+kernels through ``ops/cuda/deform_conv.py``, any other device raises.
+
+- Forward: ``deform_conv2d``, the plain version (the JAX package's gather
+  formulation, batched: a bilinear gather of the k*k taps into patch rows,
+  then one product with the weight), or the implicit-GEMM kernel
+  ``csrc/deform_conv.cu`` (K5 at stride 1, K5b at stride 2).
+- Backward, in the order of the JAX ``custom_vjp``
+  (``mxdetection_tpu/ops/pallas/dcn.py:553-587``), whose residuals are only
+  (x, offsets, weight), so nothing 9x the activation size is kept between
+  forward and backward:
+  1. dpatch = g @ W^T (``torch.matmul``, x's dtype, f32 accumulation);
+  2. (patches, doffsets) = ``deform_patches_doffsets`` (K6/K6b on the card:
+     the patches rebuilt and the offset gradient reduced over channels in
+     one pass);
+  3. dW = patches^T @ g (``torch.matmul``, f32 accumulation);
+  4. dx = ``deform_col2im`` (K7/K7b on the card: dpatch scattered back to
+     the input with the bilinear weights).
+  Steps 1 and 3 are the two products the JAX package also leaves to XLA
+  outside its kernels.
+
+The JAX package's environment switch between its gather, shift and Pallas
+paths, and its shift-select formulation, are TPU measures and are not
+ported.
 
 Layouts are the JAX package's: x (B, H, W, Cin) NHWC; offsets
 (B, Ho, Wo, 2*k*k) in (dy, dx) order per tap, taps row-major; weight
 (k, k, Cin, Cout) HWIO. Each of a sample's four bilinear corners
-contributes zero when it lies outside the map. The patches are rounded to
-the weight's dtype before the product, which accumulates in float32, and
-the result is cast to x's dtype.
+contributes zero when it lies outside the map, in value and in derivative.
+The patches are rounded to the weight's dtype before the product, which
+accumulates in float32, and the result is cast to x's dtype. The gradient
+convention is autodiff's of the gather: ly = sy - floor(sy) with the floor
+contributing nothing, so at an integer sample position the derivative is
+one-sided, v(y0 + 1) - v(y0).
 
 Offsets are exact by default. ``radius`` clamps them to [-radius, radius]
-first: the documented deviation of the Pallas kernels (R = 3), used only to
-compare with them.
+first, with the clip's gradient (zero outside the interval): the documented
+deviation of the Pallas kernels (R = 3), used only to compare with them.
 """
 
 from __future__ import annotations
@@ -27,22 +47,22 @@ from __future__ import annotations
 import torch
 
 
-def deform_sample_patches(x: torch.Tensor, offsets: torch.Tensor, *, kernel: int = 3,
-                          stride: int = 1, dilation: int = 1,
-                          radius: float | None = None) -> torch.Tensor:
-    """Deformable im2col: x (B, H, W, C), offsets (B, Ho, Wo, 2*k*k) ->
-    (B, Ho, Wo, k*k*C) float32 patch rows (tap-major, then channel).
+def _corners(shape: tuple, offsets: torch.Tensor, *, kernel: int, stride: int, dilation: int,
+             radius: float | None):
+    """The sample points of deformable im2col on a (B, H, W) map: returns
+    ly, lx (B, Ho, Wo, k, k) and, for the corners (y0, x0), (y0, x0 + 1),
+    (y0 + 1, x0), (y0 + 1, x0 + 1) in that order, the row of each in the
+    flattened (B * H * W, C) map (clamped into the map) and whether it lies
+    in the map.
 
     The f32 operations and their order are those of the JAX gather path:
-    sy = (i*stride + ty*dilation - pad) + dy, y0 = floor(sy), ly = sy - y0,
-    corner weights (1-ly)(1-lx), (1-ly)lx, ly(1-lx), ly*lx masked to zero
-    out of bounds, and the four corner products summed in that order.
+    sy = (i*stride + ty*dilation - pad) + dy, y0 = floor(sy), ly = sy - y0.
     """
-    b, h, w, c = x.shape
+    b, h, w = shape
     ho, wo = offsets.shape[1], offsets.shape[2]
     k = kernel
     pad = dilation * (k - 1) // 2
-    dev = x.device
+    dev = offsets.device
     off = offsets.float().reshape(b, ho, wo, k, k, 2)
     if radius is not None:
         off = off.clamp(-radius, radius)
@@ -57,23 +77,35 @@ def deform_sample_patches(x: torch.Tensor, offsets: torch.Tensor, *, kernel: int
 
     y0 = torch.floor(sy)
     x0 = torch.floor(sx)
-    ly = sy - y0
-    lx = sx - x0
-    flat = x.reshape(b * h * w, c)
     img = (torch.arange(b, device=dev) * (h * w)).view(b, 1, 1, 1, 1)
-
-    def tap_vals(yi, xi, wgt):
+    corners = []
+    for yi, xi in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)):
         inb = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
-        yc = yi.clamp(0, h - 1).long()
-        xc = xi.clamp(0, w - 1).long()
-        vals = flat[img + yc * w + xc].float()  # (B, Ho, Wo, k, k, C)
-        return vals * (wgt * inb.float())[..., None]
+        rows = img + yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+        corners.append((rows, inb.float()))
+    return sy - y0, sx - x0, corners
 
-    acc = (tap_vals(y0, x0, (1 - ly) * (1 - lx))
-           + tap_vals(y0, x0 + 1, (1 - ly) * lx)
-           + tap_vals(y0 + 1, x0, ly * (1 - lx))
-           + tap_vals(y0 + 1, x0 + 1, ly * lx))
-    return acc.reshape(b, ho, wo, k * k * c)
+
+def _bilinear_weights(ly: torch.Tensor, lx: torch.Tensor) -> tuple:
+    return (1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx
+
+
+def deform_sample_patches(x: torch.Tensor, offsets: torch.Tensor, *, kernel: int = 3,
+                          stride: int = 1, dilation: int = 1,
+                          radius: float | None = None) -> torch.Tensor:
+    """Deformable im2col: x (B, H, W, C), offsets (B, Ho, Wo, 2*k*k) ->
+    (B, Ho, Wo, k*k*C) float32 patch rows (tap-major, then channel): the
+    corner weights (1-ly)(1-lx), (1-ly)lx, ly(1-lx), ly*lx masked to zero
+    out of bounds, and the four corner products summed in that order."""
+    b, h, w, c = x.shape
+    ly, lx, corners = _corners((b, h, w), offsets, kernel=kernel, stride=stride,
+                               dilation=dilation, radius=radius)
+    flat = x.reshape(b * h * w, c)
+    acc = None
+    for (rows, inb), wgt in zip(corners, _bilinear_weights(ly, lx)):
+        vals = flat[rows].float() * (wgt * inb)[..., None]  # (B, Ho, Wo, k, k, C)
+        acc = vals if acc is None else acc + vals
+    return acc.reshape(*acc.shape[:3], -1)
 
 
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, *,
@@ -91,21 +123,109 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, 
     return out.to(x.dtype)
 
 
+def deform_patches_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor, *,
+                            stride: int = 1, dilation: int = 1,
+                            radius: float | None = None) -> tuple:
+    """The plain version of K6/K6b: x (B, H, W, C), offsets (B, Ho, Wo, 18),
+    dpatch (B, Ho, Wo, 9C), the gradient of the patch rows ->
+
+    - patches (B, Ho, Wo, 9C) in x's dtype, the forward's rounded patch rows;
+    - doffsets (B, Ho, Wo, 18) float32: per tap
+      doy = sum_c dpatch * ((1-lx)(v10-v00) + lx(v11-v01)) and
+      dox = sum_c dpatch * ((1-ly)(v01-v00) + ly(v11-v10)), with v the corner
+      values, zero outside the map; with ``radius``, zero where the offset
+      lies outside [-radius, radius] (the clip's gradient).
+    """
+    k = 3
+    b, h, w, c = x.shape
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    ly, lx, corners = _corners((b, h, w), offsets, kernel=k, stride=stride,
+                               dilation=dilation, radius=radius)
+    flat = x.reshape(b * h * w, c)
+    v00, v01, v10, v11 = (flat[rows].float() * inb[..., None] for rows, inb in corners)
+    w00, w01, w10, w11 = (wgt[..., None] for wgt in _bilinear_weights(ly, lx))
+    patches = v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
+    dp = dpatch.float().reshape(b, ho, wo, k, k, c)
+    ly, lx = ly[..., None], lx[..., None]
+    doy = (dp * ((1 - lx) * (v10 - v00) + lx * (v11 - v01))).sum(-1)
+    dox = (dp * ((1 - ly) * (v01 - v00) + ly * (v11 - v10))).sum(-1)
+    doff = torch.stack([doy, dox], -1)  # (B, Ho, Wo, k, k, 2)
+    if radius is not None:
+        off = offsets.float().reshape(doff.shape)
+        doff = doff * ((off >= -radius) & (off <= radius))
+    return (patches.to(x.dtype).reshape(b, ho, wo, k * k * c),
+            doff.reshape(b, ho, wo, 2 * k * k))
+
+
+def deform_col2im(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape: tuple, *,
+                  stride: int = 1, dilation: int = 1,
+                  radius: float | None = None) -> torch.Tensor:
+    """The plain version of K7/K7b: the transpose of the bilinear sampling.
+    dpatch (B, Ho, Wo, 9C), offsets (B, Ho, Wo, 18) -> dx (B, H, W, C)
+    float32 for x of ``x_shape``: each tap's dpatch row times each corner's
+    masked weight, summed into that corner's pixel (``index_add_``)."""
+    k = 3
+    b, h, w, c = x_shape
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    ly, lx, corners = _corners((b, h, w), offsets, kernel=k, stride=stride,
+                               dilation=dilation, radius=radius)
+    dp = dpatch.float().reshape(b, ho, wo, k, k, c)
+    dx = torch.zeros((b * h * w, c), dtype=torch.float32, device=dpatch.device)
+    for (rows, inb), wgt in zip(corners, _bilinear_weights(ly, lx)):
+        dx.index_add_(0, rows.reshape(-1), (dp * (wgt * inb)[..., None]).reshape(-1, c))
+    return dx.reshape(b, h, w, c)
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with float32 accumulation and a float32 result."""
+    if a.dtype == torch.float32 or a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    return torch.ops.aten.mm.dtype(a, b, torch.float32)
+
+
+class DeformConvFunction(torch.autograd.Function):
+    """(x, offsets, weight, stride, dilation, radius) -> the deformable conv,
+    with the backward of the module docstring. Saves only (x, offsets,
+    weight): the patches are rebuilt in the backward, as the JAX
+    ``custom_vjp`` and the CPU path's ``jax.checkpoint`` do."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, weight, stride, dilation, radius):
+        ctx.conf = dict(stride=stride, dilation=dilation, radius=radius)
+        ctx.save_for_backward(x, offsets, weight)
+        if x.device.type == "cuda":
+            from .cuda.deform_conv import deform_conv2d_cuda
+
+            return deform_conv2d_cuda(x, offsets, weight, **ctx.conf)
+        return deform_conv2d(x, offsets, weight, **ctx.conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offsets, weight = ctx.saved_tensors
+        k, cin, cout = weight.shape[0], weight.shape[2], weight.shape[3]
+        b, ho, wo = offsets.shape[:3]
+        n = b * ho * wo
+        g2 = g.to(x.dtype).reshape(n, cout).contiguous()
+        wmat = weight.to(x.dtype).reshape(k * k * cin, cout)
+        dpatch = torch.matmul(g2, wmat.t()).reshape(b, ho, wo, k * k * cin)
+        if x.device.type == "cuda":
+            from .cuda.deform_conv import deform_col2im_cuda, deform_patches_doffsets_cuda
+
+            patches, doff = deform_patches_doffsets_cuda(x, offsets, dpatch, **ctx.conf)
+            dx = deform_col2im_cuda(dpatch, offsets, x.shape, **ctx.conf)
+        else:
+            patches, doff = deform_patches_doffsets(x, offsets, dpatch, **ctx.conf)
+            dx = deform_col2im(dpatch, offsets, x.shape, **ctx.conf)
+        dw = _matmul_f32(patches.reshape(n, k * k * cin).t(), g2)
+        return (dx.to(x.dtype), doff.to(offsets.dtype),
+                dw.reshape(k, k, cin, cout).to(weight.dtype), None, None, None)
+
+
 def deform_conv2d_batched(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, *,
                           stride: int = 1, dilation: int = 1,
                           radius: float | None = None) -> torch.Tensor:
-    """Deformable conv over a batch: the kernel for CUDA tensors (inference
-    only: its backward is not ported yet), the plain version on the CPU."""
-    if x.device.type == "cpu":
-        return deform_conv2d(x, offsets, weight, stride=stride, dilation=dilation,
-                             radius=radius)
-    if x.device.type == "cuda":
-        if torch.is_grad_enabled() and (x.requires_grad or offsets.requires_grad
-                                        or weight.requires_grad):
-            raise NotImplementedError("the deformable conv's backward kernels (K6, K7) are "
-                                      "not ported yet (ROADMAP Queue 1 item 13b)")
-        from .cuda.deform_conv import deform_conv2d_cuda
-
-        return deform_conv2d_cuda(x, offsets, weight, stride=stride, dilation=dilation,
-                                  radius=radius)
-    raise RuntimeError(f"deform_conv2d_batched: no implementation for device {x.device}")
+    """Deformable conv over a batch, differentiable in x, offsets and
+    weight: the kernels for CUDA tensors, the plain versions on the CPU."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"deform_conv2d_batched: no implementation for device {x.device}")
+    return DeformConvFunction.apply(x, offsets, weight, stride, dilation, radius)

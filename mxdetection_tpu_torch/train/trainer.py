@@ -85,7 +85,8 @@ def sanitize_gt(tb: dict, min_size: float = 1.0) -> dict:
 
 
 class Trainer:
-    """Single-device trainer of a Faster R-CNN (``build_detector(train=True)``).
+    """Single-device trainer of a Faster or Cascade R-CNN
+    (``build_detector(train=True)``).
 
     ``model=None`` builds one from ``cfg`` on ``device`` with seeded
     weights (``seed``); a given model is moved to ``device``. The device is

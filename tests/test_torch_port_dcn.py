@@ -31,10 +31,11 @@ from mxdetection_tpu.ops.pallas.dcn import (deform_conv2d_pallas,
 
 from mxdetection_tpu_torch.config import load_config
 from mxdetection_tpu_torch.models.backbones.resnet import Bottleneck, DeformConv, ResNet
-from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
+from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_loss, rcnn_postprocess
 from mxdetection_tpu_torch.models.registry import build_detector
 from mxdetection_tpu_torch.ops import dcn as tdcn
 from mxdetection_tpu_torch.ops.cuda import deform_conv as cuda_dcn
+from mxdetection_tpu_torch.ops.matching import TorchDraws
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
 
 from test_torch_port_detector import N, T, assert_rel_close, init_flax, nchw
@@ -335,8 +336,10 @@ def test_cascade_matches_live_jax_with_noisy_offsets(cascade):
 
 def test_cascade_build_and_training_guard():
     """``build_detector`` of the cascade in eval mode stores the model in
-    its compute dtype but the offset convs in f32, as the JAX layer; the
-    cascade's training step raises until ROADMAP item 13b."""
+    its compute dtype but the offset convs in f32, as the JAX layer; in
+    train mode every parameter stays an f32 master weight, and a training
+    step runs: three stages, and a gradient for every deformable layer's
+    weight and offset conv (through ``DeformConvFunction``'s backward)."""
     cfg = load_config(CASCADE)
     model = build_detector(cfg.override(**{"backbone.depth": 50}), device="cpu", seed=0)
     assert model.num_stages == 3 and model.class_agnostic
@@ -352,5 +355,22 @@ def test_cascade_build_and_training_guard():
     assert len(load_config(CASCADE).backbone.dcn_stages) == 4
     r101 = ResNet(depth=101, dcn_stages=cfg.backbone.dcn_stages)
     assert len(r101.block_names[2]) == 23
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward_train({"images": torch.zeros(1, 64, 64, 3)}, None)
+
+    small = cfg.override(**{"backbone.depth": 50, "backbone.dtype": "float32",
+                            "rpn.pre_nms_top_n_train": 50, "rpn.post_nms_top_n_train": 20,
+                            "bbox_head.num_samples": 16})
+    model = build_detector(small, device="cpu", seed=0, train=True)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    tb = {"images": torch.randn(1, 64, 96, 3, generator=torch.Generator().manual_seed(0)),
+          "im_info": torch.tensor([[64.0, 96.0, 1.0]]),
+          "gt_boxes": torch.tensor([[[8.0, 8.0, 40.0, 50.0], [0.0, 0.0, 0.0, 0.0]]]),
+          "gt_labels": torch.tensor([[3, 0]]), "gt_valid": torch.tensor([[True, False]])}
+    draws = TorchDraws(torch.Generator().manual_seed(1))
+    out = model.forward_train(tb, draws)
+    loss, metrics = rcnn_loss(out, tb, draws, small)
+    loss.backward()
+    assert len(out["stages"]) == 3 and torch.isfinite(loss) and "loss_rcnn_cls2" in metrics
+    layers = [m for m in model.modules() if isinstance(m, DeformConv)]
+    assert len(layers) == 13
+    for m in layers:
+        assert m.weight.grad.abs().max() > 0 and m.offset_conv.weight.grad.abs().max() > 0

@@ -224,15 +224,17 @@ def test_build_detector_rejects_unported():
 
 
 def test_port_runs_without_jax():
-    """The port imports and runs a tiny seeded forward, one training step
-    and a tiny cascade forward (DCN in stage 4) with jax, flax, optax and
-    the JAX package blocked: the card's machine has no jax, and the port
-    keeps its own configs."""
+    """The port imports and runs a tiny seeded forward, one training step,
+    and a tiny cascade forward and training step (DCN in stage 4, so the
+    deformable conv's backward runs) with jax, flax, optax and the JAX
+    package blocked: the card's machine has no jax, and the port keeps its
+    own configs."""
     script = textwrap.dedent("""
         import sys
         for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
             sys.modules[blocked] = None
         import torch
+        torch.set_num_threads(1)  # the suite's other workers share these cores
         from mxdetection_tpu_torch.config import load_config
         from mxdetection_tpu_torch.data.transforms import batch_transform
         from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
@@ -276,8 +278,19 @@ def test_port_runs_without_jax():
         dets = rcnn_postprocess(model.forward_test(tb["images"], tb["im_info"]), casc,
                                 (d.pad_h, d.pad_w), tb["im_info"])
         assert torch.isfinite(dets["boxes"]).all() and int(dets["valid"].sum()) > 0
+        m = Trainer(casc.override(**{"rpn.pre_nms_top_n_train": 100,
+                                     "rpn.post_nms_top_n_train": 50,
+                                     "bbox_head.num_samples": 16}), device="cpu",
+                    seed=0).run_step({
+            "raw": raw, "hw": hw, "flip": torch.tensor([False, True]), "gt_boxes": gtb,
+            "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
+            "gt_valid": torch.tensor([[True, False, False]] * 2)})
+        assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        assert "loss_rcnn_cls2" in m
         counts = (roi_align.launch_count, roi_align.bwd_launch_count, nms.launch_count,
-                  iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count)
+                  iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count,
+                  deform_conv.patches_launch_count, deform_conv.patches_s2_launch_count,
+                  deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count)
         assert all(c.n == 0 for c in counts)
         assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
