@@ -29,9 +29,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against its plain version at the six DCN layer shapes of Cascade
    R101-DCN at 8x832x1344 (offsets of std 1.5 cells): f32 within 1e-4 of
    the largest output, bf16 within two bf16 roundings; also with
-   ``radius=3``, at dilation 2, and with zero offsets against ``F.conv2d``;
-   times the kernel, its plain version and cuDNN's ``F.conv2d`` of the same
-   shape (which computes the same function only at zero offsets);
+   ``radius=3``, at dilation 2, and with zero offsets against ``F.conv2d``
+   (f32, and bf16 at the stage-3 and stage-4 shapes), on a ragged bf16 M at
+   both strides, and the card's weight tiles bit for bit against
+   ``wgmma_weight_tiles``; logs ptxas's registers and spills of the bf16
+   kernel, its shared memory and the ``HGMMA`` count in its SASS (failing on
+   spills or none); times the kernel, its plain version and cuDNN's
+   ``F.conv2d`` of the same shape (which computes the same function only at
+   zero offsets);
 8. drives the Cascade R-CNN R101-DCN inference path at full width (bf16,
    seeded weights, every offset conv overwritten by seeded noise scaled so
    the offsets have a std of about 1 cell); a warm-up batch and 20 timed
@@ -771,15 +776,68 @@ def describe_stats(st: dict) -> str:
             f"{100 * st['taps_out'] / st['taps']:.2f}% of taps sample outside the map")
 
 
+def k5_build_facts() -> None:
+    """Log what nvcc made of the bf16 K5 kernel (``deform_conv_fwd_kernel``,
+    one instantiation a tile width): ptxas's lines (registers, spills), its
+    dynamic shared memory and the count of ``HGMMA`` (wgmma) instructions in
+    its SASS by ``cuobjdump``; fail on spills or on a kernel without wgmma."""
+    import os
+    import re
+
+    from mxdetection_tpu_torch.ops.cuda import build
+
+    name = "deform_conv_fwd_kernel"
+    path, _, report = build.build()
+    lines, keep = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = name in line
+        if keep:
+            lines.append(line.strip())
+    for line in lines:
+        log(f"K5 ptxas: {line}")
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                            "\n".join(lines)))
+    if not lines:
+        fail(f"K5: no ptxas report of {name}")
+    if spills:
+        fail(f"K5: {name} spills {spills} bytes")
+    lib = build.load_library()
+    smem = {cout: lib.mxdet_deform_conv_fwd_smem(cout) for cout in (128, 256, 512)}
+    log(f"K5 bf16 dynamic shared memory a block by Cout: {smem} bytes")
+    if min(smem.values()) <= 48 * 1024:
+        fail("K5: the bf16 kernel's ring should take more than 48 KB of shared memory")
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    hgmma = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = func.split("\n", 1)[0].strip()
+        if name in fname:
+            hgmma[fname] = func.count("HGMMA")
+    log(f"K5 SASS (cuobjdump): HGMMA instructions by instantiation {hgmma}")
+    if not hgmma or not all(hgmma.values()):
+        fail(f"K5: no HGMMA in the SASS of {name}")
+
+
 def phase_deform_conv(device) -> dict:
     """K5 (stride 1) and K5b (stride 2) against the plain version at the six
     DCN layer shapes of the cascade path, batch 8, offsets of std 1.5 cells."""
     import torch
     import torch.nn.functional as F
 
-    from mxdetection_tpu_torch.ops.cuda.deform_conv import deform_conv2d_cuda
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import (bf16_tile_n, deform_conv2d_cuda,
+                                                            wgmma_weight_tiles,
+                                                            wgmma_weight_tiles_cuda)
     from mxdetection_tpu_torch.ops.dcn import deform_conv2d
 
+    def bf16_ok(got, ref) -> tuple[bool, float]:
+        """Within two bf16 roundings of |ref| plus 1e-4 of max|ref|."""
+        err = (got.float() - ref.float()).abs()
+        tol = 2.0 ** -7 * ref.float().abs() + 1e-4 * ref.float().abs().max()
+        return bool((err <= tol).all()) and bool(torch.isfinite(got).all()), err.max().item()
+
+    k5_build_facts()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(10)
@@ -827,6 +885,8 @@ def phase_deform_conv(device) -> dict:
             f"{describe_stats(st)}")
         if err32 > 1e-4 * scale or not ok16:
             fail(f"K5 disagrees with its plain version at {shape}")
+        if not torch.equal(wgmma_weight_tiles_cuda(w16), wgmma_weight_tiles(w16, bf16_tile_n(c))):
+            fail(f"K5 {shape}: the card's weight tiles differ from wgmma_weight_tiles")
         r = res[stride]
         r["max_abs_err"] = max(r["max_abs_err"], err32)
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
@@ -865,6 +925,35 @@ def phase_deform_conv(device) -> dict:
             f"(<= 1e-4 max|ref|: {'ok' if err <= 1e-4 * scale else 'FAILED'})")
         if not err <= 1e-4 * scale:
             fail(f"K5 {what}: disagrees with its reference")
+
+    # bf16: zero offsets against cuDNN's bf16 conv at the stage-3 and stage-4
+    # shapes (stage 4's M = 8 x 26 x 42 is no multiple of the 64-row tile),
+    # and a ragged M at both strides (2 x 19 x 23 and 2 x 10 x 12 pixels)
+    checks = []
+    for h, w, c in ((52, 84, 256), (26, 42, 512)):
+        x16 = torch.randn((b, h, w, c), generator=gen).to(device).bfloat16()
+        w16 = (torch.randn((3, 3, c, c), generator=gen) * (2.0 / (9 * c)) ** 0.5).to(device)
+        w16 = w16.bfloat16()
+        conv = F.conv2d(x16.permute(0, 3, 1, 2), w16.permute(3, 2, 0, 1), padding=1)
+        checks.append((f"zero offsets vs F.conv2d {h}x{w}x{c}",
+                       deform_conv2d_cuda(x16, torch.zeros((b, h, w, 18), device=device), w16),
+                       conv.permute(0, 2, 3, 1)))
+    xs16 = torch.randn((2, 19, 23, 128), generator=gen).to(device).bfloat16()
+    ws16 = ws.bfloat16()
+    for stride in (1, 2):
+        offs = (torch.randn((2, -(-19 // stride), -(-23 // stride), 18), generator=gen)
+                * 1.5).to(device)
+        checks.append((f"ragged M 2x19x23x128 stride {stride}",
+                       deform_conv2d_cuda(xs16, offs, ws16, stride=stride),
+                       deform_conv2d(xs16, offs, ws16, stride=stride)))
+    torch.cuda.synchronize()
+    for what, got, ref in checks:
+        ok, err = bf16_ok(got, ref)
+        log(f"K5 {what} (bf16): max_abs_err {err:.3e} of max|ref| "
+            f"{ref.float().abs().max().item():.3e} (|err| <= 2^-7 |ref| + 1e-4 max|ref|: "
+            f"{'ok' if ok else 'FAILED'})")
+        if not ok:
+            fail(f"K5 {what} (bf16): disagrees with its reference")
     return res
 
 

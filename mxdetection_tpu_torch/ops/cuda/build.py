@@ -71,14 +71,24 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmxdet_kernels_{h.hexdigest()[:16]}.so")
 
 
+def report_path(lib_path: str) -> str:
+    """Where ``build`` keeps nvcc's report beside the library."""
+    return f"{lib_path}.ptxas.txt"
+
+
 def build() -> tuple[str, float, str]:
     """Compile ``csrc/*.cu`` unless the library for this source hash exists.
 
-    Returns (library path, build seconds (0.0 when reused), nvcc's report).
+    Returns (library path, build seconds (0.0 when reused), nvcc's report,
+    read back from beside the library when reused).
     """
     path = library_path()
     if os.path.exists(path):
-        return path, 0.0, ""
+        try:
+            with open(report_path(path)) as f:
+                return path, 0.0, f.read()
+        except OSError:
+            return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -105,8 +115,12 @@ def build() -> tuple[str, float, str]:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}\n{res.stderr}")
+    text = "".join(report) + res.stdout + res.stderr
+    with open(f"{tmp}.ptxas.txt", "w") as f:
+        f.write(text)
+    os.replace(f"{tmp}.ptxas.txt", report_path(path))
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, time.perf_counter() - t0, "".join(report) + res.stdout + res.stderr
+    return path, time.perf_counter() - t0, text
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,11 +134,14 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_f32_to_bf16.argtypes = [p, p, ll, p]
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
     lib.mxdet_pairwise_iou.argtypes = [p, ll, p, i, i, i, p, p]
-    lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
+    lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
+    lib.mxdet_deform_conv_fwd_smem.argtypes = [i]
+    lib.mxdet_deform_conv_weight_tiles.argtypes = [p, p, i, i, p]
     lib.mxdet_deform_patches_doffsets.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     lib.mxdet_deform_col2im.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_f32_to_bf16,
                lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou, lib.mxdet_deform_conv_fwd,
+               lib.mxdet_deform_conv_fwd_smem, lib.mxdet_deform_conv_weight_tiles,
                lib.mxdet_deform_patches_doffsets, lib.mxdet_deform_col2im):
         fn.restype = i
     return lib

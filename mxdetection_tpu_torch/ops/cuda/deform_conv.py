@@ -31,8 +31,35 @@ col2im_launch_count = LaunchCount("deform_col2im")                   # K7
 col2im_s2_launch_count = LaunchCount("deform_col2im_s2")             # K7b
 
 _DTYPES = (torch.float32, torch.bfloat16)
-TILE_K, TILE_N = 64, 64  # the forward walks Cin in chunks of TILE_K, Cout in tiles of TILE_N
-VEC = 4                  # the backward walks channels in vectors of VEC
+TILE_K = 64      # the forward walks Cin in chunks of TILE_K (one 128-byte bf16 row)
+F32_TILE_N = 64  # the f32 forward's output-channel tile
+VEC = 4          # the backward walks channels in vectors of VEC
+MAX_X_ELEMENTS = 2 ** 31 - 1  # the bf16 forward keeps corner offsets in 32 bits
+
+
+def bf16_tile_n(cout: int) -> int | None:
+    """Output channels of one block of the bf16 forward (one wgmma tile):
+    all of Cout = 128, or 256 when Cout is a multiple of 256; None for a
+    Cout it does not take."""
+    if cout == 128:
+        return 128
+    return 256 if cout > 0 and cout % 256 == 0 else None
+
+
+def wgmma_weight_tiles(weight: torch.Tensor, tile_n: int) -> torch.Tensor:
+    """The bf16 forward's layout of W = weight.reshape(9 * Cin, Cout), plain
+    version of ``wgmma_weight_tiles_cuda``: K-major tiles of (tile_n output
+    channels x 64 rows of K), in the 128-byte swizzle that the kernel's wgmma
+    descriptors read, so one contiguous bulk copy fills a stage. Shape
+    (Cout / tile_n, 9 * Cin / 64, tile_n, 64); element (j, kc, n, 8 * s + e)
+    is W[64 * kc + 8 * (s ^ (n % 8)) + e, tile_n * j + n]."""
+    cin, cout = weight.shape[2], weight.shape[3]
+    k = 9 * cin
+    wt = weight.reshape(k, cout).t().reshape(cout // tile_n, tile_n, k // TILE_K, 8, 8)
+    wt = wt.permute(0, 2, 1, 3, 4)  # (j, kc, n, 16-byte group, e)
+    n = torch.arange(tile_n, device=weight.device)
+    group = torch.arange(8, device=weight.device)[None, :] ^ (n[:, None] % 8)
+    return wt[:, :, n[:, None], group].reshape(cout // tile_n, k // TILE_K, tile_n, TILE_K)
 
 
 def _check_geometry(what: str, x_shape, offsets: torch.Tensor, stride: int,
@@ -74,12 +101,38 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     check(err, name)
 
 
+def wgmma_weight_tiles_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """``wgmma_weight_tiles(weight, bf16_tile_n(Cout))`` on the card, by the
+    layout kernel of ``csrc/deform_conv.cu``: weight (3, 3, Cin, Cout) bf16
+    HWIO on a CUDA device, Cin a multiple of 64."""
+    what = "wgmma_weight_tiles_cuda"
+    if weight.dtype != torch.bfloat16 or weight.dim() != 4 or weight.shape[:2] != (3, 3):
+        raise ValueError(f"{what}: weight {weight.dtype} {tuple(weight.shape)}; expected bf16 "
+                         "(3, 3, Cin, Cout)")
+    cin, cout = weight.shape[2], weight.shape[3]
+    tile_n = bf16_tile_n(cout)
+    if cin % TILE_K or cin == 0 or tile_n is None:
+        raise ValueError(f"{what}: Cin={cin}, Cout={cout}; Cin a multiple of {TILE_K}, Cout 128 "
+                         "or a multiple of 256")
+    dev = _check_device(what, weight)
+    weight = weight.contiguous()
+    tiles = torch.empty((cout // tile_n, 9 * cin // TILE_K, tile_n, TILE_K), dtype=weight.dtype,
+                        device=dev)
+    _launch("mxdet_deform_conv_weight_tiles", dev, weight.data_ptr(), tiles.data_ptr(), cin, cout)
+    return tiles
+
+
 def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, *,
                        stride: int = 1, dilation: int = 1,
                        radius: float | None = None) -> torch.Tensor:
     """x (B, H, W, Cin) contiguous, f32 or bf16; offsets (B, Ho, Wo, 18) f32,
     Ho = ceil(H / stride); weight (3, 3, Cin, Cout) HWIO in x's dtype ->
-    (B, Ho, Wo, Cout) in x's dtype. ``radius`` clamps the offsets."""
+    (B, Ho, Wo, Cout) in x's dtype. ``radius`` clamps the offsets. Cin is a
+    multiple of 64; Cout a multiple of 64 in f32, and 128 or a multiple of
+    256 in bf16, whose kernel also takes x of at most 2^31 - 1 elements.
+    For bf16 the entry point first lays the weight out as
+    ``wgmma_weight_tiles_cuda`` does, on every call (1.2 MB at
+    Cin = Cout = 256)."""
     what = "deform_conv2d_cuda"
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
         raise TypeError(f"{what}: x {x.dtype} and weight {weight.dtype} must be one dtype of "
@@ -89,19 +142,29 @@ def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Ten
                          "(B, H, W, Cin), (3, 3, Cin, Cout)")
     b, h, w, cin, ho, wo = _check_geometry(what, x.shape, offsets, stride, dilation)
     cout = weight.shape[3]
-    if weight.shape[2] != cin or cin % TILE_K or cout % TILE_N:
+    bf16 = x.dtype == torch.bfloat16
+    tile_n = bf16_tile_n(cout) if bf16 else (F32_TILE_N if cout % F32_TILE_N == 0 else None)
+    if weight.shape[2] != cin or cin % TILE_K or cin == 0 or tile_n is None:
         raise ValueError(f"{what}: Cin={cin}, Cout={cout}; the weight must take x's channels, "
-                         f"Cin a multiple of {TILE_K} and Cout of {TILE_N}")
+                         f"Cin a multiple of {TILE_K}, Cout "
+                         + ("128 or a multiple of 256 (bf16)" if bf16 else
+                            f"a multiple of {F32_TILE_N} (f32)"))
+    if bf16 and x.numel() > MAX_X_ELEMENTS:
+        raise ValueError(f"{what}: x has {x.numel()} elements; the bf16 kernel takes at most "
+                         f"{MAX_X_ELEMENTS}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous NHWC, 16-byte aligned")
     dev = _check_device(what, x, offsets, weight)
     wmat = weight.reshape(9 * cin, cout).contiguous()
     if wmat.data_ptr() % 16:
         wmat = wmat.clone()
+    # bf16: scratch for the weight's tiles, which the entry point lays out
+    # (as wgmma_weight_tiles_cuda) before the kernel reads them
+    tiles = torch.empty_like(wmat) if bf16 else None
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=dev)
     _launch("mxdet_deform_conv_fwd", dev, x.data_ptr(), offsets.data_ptr(), wmat.data_ptr(),
-            out.data_ptr(), b, h, w, cin, ho, wo, cout, stride, dilation, _radius(radius),
-            int(x.dtype == torch.bfloat16))
+            tiles.data_ptr() if bf16 else None, out.data_ptr(), b, h, w, cin, ho, wo, cout,
+            stride, dilation, _radius(radius), int(bf16))
     (launch_count if stride == 1 else s2_launch_count).add()
     return out
 

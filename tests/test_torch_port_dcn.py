@@ -35,6 +35,7 @@ from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_loss, rcnn_postproc
 from mxdetection_tpu_torch.models.registry import build_detector
 from mxdetection_tpu_torch.ops import dcn as tdcn
 from mxdetection_tpu_torch.ops.cuda import deform_conv as cuda_dcn
+from mxdetection_tpu_torch.ops.cuda import k5_variants
 from mxdetection_tpu_torch.ops.matching import TorchDraws
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
 
@@ -133,13 +134,14 @@ def test_deform_conv_dispatch():
 
 
 def _dcn_call(x_dtype=torch.float32, w_dtype=None, off_dtype=torch.float32, cin=64,
-              cout=64, stride=1, off_shape=None, layout=False):
-    x = torch.zeros(1, 6, 8, cin, dtype=x_dtype)
+              cout=64, stride=1, off_shape=None, layout=False, device="cpu", hw=(6, 8)):
+    h, w = hw
+    x = torch.empty(1, h, w, cin, dtype=x_dtype, device=device)
     if layout:
-        x = torch.zeros(1, 8, 6, cin, dtype=x_dtype).transpose(1, 2)
-    ho, wo = -(-6 // stride), -(-8 // stride)
-    off = torch.zeros(off_shape or (1, ho, wo, 18), dtype=off_dtype)
-    wt = torch.zeros(3, 3, cin, cout, dtype=w_dtype or x_dtype)
+        x = torch.zeros(1, w, h, cin, dtype=x_dtype).transpose(1, 2)
+    ho, wo = -(-h // stride), -(-w // stride)
+    off = torch.zeros(off_shape or (1, ho, wo, 18), dtype=off_dtype, device=device)
+    wt = torch.zeros(3, 3, cin, cout, dtype=w_dtype or x_dtype, device=device)
     return lambda: cuda_dcn.deform_conv2d_cuda(x, off, wt, stride=stride)
 
 
@@ -149,6 +151,10 @@ DCN_WRAPPER_CASES = {
     "offsets_dtype": (TypeError, "offsets", _dcn_call(off_dtype=torch.bfloat16)),
     "cin": (ValueError, "Cin=48", _dcn_call(cin=48)),
     "cout": (ValueError, "Cout=96", _dcn_call(cout=96)),
+    "cout_bf16": (ValueError, "Cout=64", _dcn_call(x_dtype=torch.bfloat16, cout=64)),
+    "cout_bf16_not_256": (ValueError, "Cout=384", _dcn_call(x_dtype=torch.bfloat16, cout=384)),
+    "x_elements_bf16": (ValueError, "elements", _dcn_call(x_dtype=torch.bfloat16, cout=128,
+                                                          device="meta", hw=(2 ** 16, 2 ** 15))),
     "stride": (ValueError, "stride 3", _dcn_call(stride=3)),
     "offsets_shape": (ValueError, "offsets", _dcn_call(off_shape=(1, 6, 8, 9))),
     "layout": (ValueError, "contiguous", _dcn_call(layout=True)),
@@ -167,6 +173,68 @@ def test_deform_conv_cuda_wrapper_validates_before_launch(case, monkeypatch):
     exc, match, call = DCN_WRAPPER_CASES[case]
     with pytest.raises(exc, match=match):
         call()
+
+
+WEIGHT_TILES_CASES = {
+    "dtype": (ValueError, "bf16", torch.zeros(3, 3, 64, 128)),
+    "shape": (ValueError, "bf16", torch.zeros(3, 64, 128, dtype=torch.bfloat16)),
+    "cin": (ValueError, "Cin=48", torch.zeros(3, 3, 48, 128, dtype=torch.bfloat16)),
+    "cout": (ValueError, "Cout=64", torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16)),
+    "cpu": (ValueError, "CUDA", torch.zeros(3, 3, 64, 128, dtype=torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WEIGHT_TILES_CASES))
+def test_weight_tiles_cuda_validates_before_launch(case, monkeypatch):
+    """The card's weight layout refuses what its kernel does not take, and a
+    weight not on a CUDA device, before building or launching anything."""
+    def no_build():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(cuda_dcn, "load_library", no_build)
+    exc, match, weight = WEIGHT_TILES_CASES[case]
+    with pytest.raises(exc, match=match):
+        cuda_dcn.wgmma_weight_tiles_cuda(weight)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 256), (64, 512)])
+def test_wgmma_weight_tiles_reads_back_as_documented(cin, cout):
+    """The bf16 forward's layout of W (``wgmma_weight_tiles``, the plain
+    version of the card's layout kernel), read back by its documented rule,
+    is ``weight.reshape(9 * Cin, Cout)`` element for element: element
+    (j, kc, n, 8 s + e) is W[64 kc + 8 (s ^ n % 8) + e, tile_n j + n]."""
+    weight = torch.from_numpy(np.random.RandomState(cin + cout).randn(3, 3, cin, cout)
+                              .astype(np.float32)).bfloat16()
+    tile_n = cuda_dcn.bf16_tile_n(cout)
+    assert tile_n == (128 if cout == 128 else 256)
+    tiles = cuda_dcn.wgmma_weight_tiles(weight, tile_n)
+    assert tiles.shape == (cout // tile_n, 9 * cin // 64, tile_n, 64) and tiles.is_contiguous()
+    j, kc, n, k = np.meshgrid(*[np.arange(d) for d in tiles.shape], indexing="ij")
+    read = tiles.float().numpy()[j, kc, n, ((k // 8) ^ (n % 8)) * 8 + k % 8]
+    wmat = weight.reshape(9 * cin, cout).float().numpy()
+    np.testing.assert_array_equal(read, wmat[64 * kc + k, tile_n * j + n])
+    # the swizzle moves data: row n = 1 stores K's second 16-byte group first
+    np.testing.assert_array_equal(tiles[0, 0, 1, :8].float().numpy(), wmat[8:16, 1])
+
+
+def test_bf16_tile_n():
+    assert [cuda_dcn.bf16_tile_n(c) for c in (64, 128, 192, 256, 384, 512, 1024)] == [
+        None, 128, None, 256, None, 256, 256]
+
+
+@pytest.mark.parametrize("name", sorted(k5_variants.VARIANTS))
+def test_k5_variant_edits_apply(name, tmp_path):
+    """Each variant that ``ops/cuda/k5_variants.py`` times on the card is one
+    edit set that still applies, each edit exactly once, to the kernel
+    source; only ``deform_conv.cu`` changes."""
+    from mxdetection_tpu_torch.ops.cuda import build
+
+    csrc = k5_variants.make_variant(name, build.CSRC_DIR, str(tmp_path / name))
+    assert sorted(os.listdir(csrc)) == sorted(os.listdir(build.CSRC_DIR))
+    for f in os.listdir(csrc):
+        with open(os.path.join(csrc, f)) as a, open(os.path.join(build.CSRC_DIR, f)) as b:
+            same = a.read() == b.read()
+        assert same == (f != "deform_conv.cu" or name == "base"), f
 
 
 # ---------------------------------------------------------------- layers
