@@ -51,14 +51,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
 10. holds the deformable conv's backward kernels (K6/K6b: the patches
-   rebuilt with the offset gradient reduced over channels; K7/K7b: dx by
-   atomics) against their plain versions at the six DCN layer shapes
-   (offsets of std 1.5 cells): f32 within 1e-4 of the largest gradient, and
-   the whole bf16 backward of ``DeformConvFunction`` against the f32 plain
-   one, norm-relative under 3 % (dx, dW) and 6 % (doffsets); also with
-   ``radius=3`` and at zero offsets against ``F.conv2d``'s gradients; times
-   each kernel, its plain version and cuDNN's conv backward of the same
-   shape (wgrad beside K6, dgrad beside K7);
+   rebuilt with the offset gradient reduced over channels; K7/K7b: dx, the
+   terms of an output tile's taps sorted by input cell in shared memory,
+   each cell summed in registers and added with a vector atomic) against
+   their plain versions at the six DCN layer shapes
+   (offsets of std 1.5 cells): f32 within 1e-4 of the largest gradient, K7
+   on the bf16 dpatch of the main path as well, and the whole bf16
+   backward of ``DeformConvFunction`` against the f32 plain one,
+   norm-relative under 3 % (dx, dW) and 6 % (doffsets); also with
+   ``radius=3`` and at zero offsets against ``F.conv2d``'s gradients, and
+   K7 on f32 and bf16 dpatch with offsets of std 6 cells and some at +-40
+   (corners spilled out of the windows and off the map, timed beside the
+   spill share) and at dilation 2; logs ptxas's lines of K7 (failing on
+   spills), the window the built kernel reports (failing where it is not
+   the plain model's) and its SASS's atomics; times each kernel, its plain
+   version and cuDNN's conv backward of the same shape (wgrad beside K6,
+   dgrad beside K7), and K7 also on offsets of std 1 cell, about the main
+   path's;
 11. drives the Cascade R-CNN R101-DCN training path at full width:
    ``Trainer.run_step`` in bf16 with seeded weights and the offset-conv
    noise of step 8, 2 warm-up and 10 timed steps, every kernel's launch count
@@ -776,17 +785,15 @@ def describe_stats(st: dict) -> str:
             f"{100 * st['taps_out'] / st['taps']:.2f}% of taps sample outside the map")
 
 
-def k5_build_facts() -> None:
-    """Log what nvcc made of the bf16 K5 kernel (``deform_conv_fwd_kernel``,
-    one instantiation a tile width): ptxas's lines (registers, spills), its
-    dynamic shared memory and the count of ``HGMMA`` (wgmma) instructions in
-    its SASS by ``cuobjdump``; fail on spills or on a kernel without wgmma."""
+def ptxas_facts(name: str, tag: str) -> dict:
+    """Log ptxas's lines (registers, spills, shared memory) of kernel
+    ``name`` (every instantiation) and fail on spills; -> {instantiation:
+    its SASS} by ``cuobjdump``."""
     import os
     import re
 
     from mxdetection_tpu_torch.ops.cuda import build
 
-    name = "deform_conv_fwd_kernel"
     path, _, report = build.build()
     lines, keep = [], False
     for line in report.splitlines():
@@ -795,29 +802,68 @@ def k5_build_facts() -> None:
         if keep:
             lines.append(line.strip())
     for line in lines:
-        log(f"K5 ptxas: {line}")
+        log(f"{tag} ptxas: {line}")
     spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                             "\n".join(lines)))
     if not lines:
-        fail(f"K5: no ptxas report of {name}")
+        fail(f"{tag}: no ptxas report of {name}")
     if spills:
-        fail(f"K5: {name} spills {spills} bytes")
+        fail(f"{tag}: {name} spills {spills} bytes")
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = func.split("\n", 1)[0].strip()
+        if name in fname:
+            funcs[fname] = func
+    return funcs
+
+
+def k5_build_facts() -> None:
+    """Log what nvcc made of the bf16 K5 kernel (``deform_conv_fwd_kernel``,
+    one instantiation a tile width): ptxas's lines (registers, spills), its
+    dynamic shared memory and the count of ``HGMMA`` (wgmma) instructions in
+    its SASS by ``cuobjdump``; fail on spills or on a kernel without wgmma."""
+    from mxdetection_tpu_torch.ops.cuda import build
+
+    name = "deform_conv_fwd_kernel"
+    funcs = ptxas_facts(name, "K5")
     lib = build.load_library()
     smem = {cout: lib.mxdet_deform_conv_fwd_smem(cout) for cout in (128, 256, 512)}
     log(f"K5 bf16 dynamic shared memory a block by Cout: {smem} bytes")
     if min(smem.values()) <= 48 * 1024:
         fail("K5: the bf16 kernel's ring should take more than 48 KB of shared memory")
-    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "--dump-sass", path], capture_output=True, text=True,
-                          check=True).stdout
-    hgmma = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        fname = func.split("\n", 1)[0].strip()
-        if name in fname:
-            hgmma[fname] = func.count("HGMMA")
+    hgmma = {fname: func.count("HGMMA") for fname, func in funcs.items()}
     log(f"K5 SASS (cuobjdump): HGMMA instructions by instantiation {hgmma}")
     if not hgmma or not all(hgmma.values()):
         fail(f"K5: no HGMMA in the SASS of {name}")
+
+
+def k7_build_facts() -> None:
+    """Log what nvcc made of K7/K7b (``deform_col2im_kernel``, one
+    instantiation a dtype and stride): ptxas's lines, failing on spills; the
+    tile, window and shared memory the built kernel reports
+    (``col2im_layout_cuda``), failing where they differ from the plain
+    model's (``col2im_config``, read from the source); and its SASS's
+    atomics."""
+    import re
+
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import col2im_config, col2im_layout_cuda
+
+    funcs = ptxas_facts("deform_col2im_kernel", "K7")
+    for stride in (1, 2):
+        model = col2im_config(stride)
+        for dt in ("bf16", "f32"):
+            built = col2im_layout_cuda(stride, dt == "bf16")
+            same = all(built[k] == model[k] for k in ("tile", "chunk", "origin", "window"))
+            log(f"K7 s{stride} {dt}: built kernel {built} (smem: dynamic shared memory a "
+                f"block, bytes), plain model {model}: {'same' if same else 'DIFFERENT'} window")
+            if not same:
+                fail(f"K7 s{stride} {dt}: the built kernel's window is not the plain model's")
+    for fname, func in funcs.items():
+        ops = sorted(set(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Za-z0-9_.]+", func)))
+        log(f"K7 SASS (cuobjdump) {fname}: atomics {ops}")
 
 
 def phase_deform_conv(device) -> dict:
@@ -1332,6 +1378,61 @@ def rel_norm(got, ref) -> float:
     return float((got.double() - ref.double()).norm() / ref.double().norm().clamp(min=1e-30))
 
 
+def col2im_checks(device, gen) -> dict:
+    """K7's windows against offsets they do not hold, f32 and bf16 dpatch
+    each within 1e-4 of the largest value of the plain ``deform_col2im`` on
+    the same dpatch: at a stage-3 and a stage-2 stride-2 shape, offsets of
+    std 6 cells with one value in a thousand set to +-40, so corners land far
+    outside every window and outside the map (the spills, counted by the
+    plain model, must be nonzero); and at dilation 2 with offsets of std 1.5
+    cells. Times K7 on the bf16 dpatch of each, beside the share of corners
+    that spill; -> {check: (ms, spill share)}."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import dcn as tdcn
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import (col2im_window_split,
+                                                            deform_col2im_cuda)
+
+    b = MAIN_BATCH
+    times = {}
+    for what, (h, w, c), stride, dilation, std in (
+            ("spill-heavy stage3 s1", (52, 84, 256), 1, 1, 6.0),
+            ("spill-heavy stage2 s2", (208, 336, 128), 2, 1, 6.0),
+            ("dilation 2 stage3 s1", (52, 84, 256), 1, 2, 1.5)):
+        ho, wo = -(-h // stride), -(-w // stride)
+        off = torch.randn((b, ho, wo, 18), generator=gen) * std
+        if std > 3:
+            far = torch.rand(off.shape, generator=gen) < 1e-3
+            off[far] = 40.0 * torch.sign(torch.randn(int(far.sum()), generator=gen))
+        off = off.to(device)
+        dp32 = torch.randn((b, ho, wo, 9 * c), generator=gen).to(device)
+        kw = dict(stride=stride, dilation=dilation)
+        n_spilled = col2im_window_split(dp32, off, (b, h, w, c), **kw)[2]
+        share = n_spilled / (b * ho * wo * 36)
+        for dt, dp in (("f32", dp32), ("bf16", dp32.bfloat16())):
+            got = deform_col2im_cuda(dp, off, (b, h, w, c), **kw)
+            ref = tdcn.deform_col2im(dp, off, (b, h, w, c), **kw)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= 1e-4 * scale
+            log(f"K7 {what} {h}x{w}x{c}, dilation {dilation}, offsets std {std} ({dt} dpatch): "
+                f"max_abs_err {err:.3e} of max|ref| {scale:.3e} (<= 1e-4 max|ref|: "
+                f"{'ok' if ok else 'FAILED'}); {n_spilled} of {b * ho * wo * 36} corners spilled "
+                f"({100 * share:.2f} %)")
+            if not ok:
+                fail(f"K7 {what} ({dt} dpatch): disagrees with deform_col2im")
+            del got, ref
+        if std > 3 and n_spilled == 0:
+            fail(f"K7 {what}: no corner spilled out of the windows")
+        times[what] = (time_ms(lambda: deform_col2im_cuda(dp, off, (b, h, w, c), **kw)), share)
+        log(f"K7 {what}: bf16 {times[what][0]:.4f} ms a call with {100 * share:.2f} % of the "
+            "corners spilled")
+        del off, dp32, dp
+        torch.cuda.empty_cache()
+    return times
+
+
 def phase_deform_conv_bwd(device) -> dict:
     """K6/K6b and K7/K7b against their plain versions at the six DCN layer
     shapes of the cascade path, batch 8, offsets of std 1.5 cells: f32
@@ -1339,14 +1440,19 @@ def phase_deform_conv_bwd(device) -> dict:
     (``DeformConvFunction``) against the f32 plain one, norm-relative under
     3 % for dx and dW and 6 % for doffsets. Times each kernel, its plain
     version and cuDNN's conv backward of the same shape (dgrad beside K7,
-    wgrad beside K6: the same function only at zero offsets)."""
+    wgrad beside K6: the same function only at zero offsets), and K7 again
+    on offsets of std 1 cell (about the main path's), beside the share of
+    corners that spill out of K7's windows at both. Then K7's spill-heavy
+    and dilation-2 checks (``col2im_checks``)."""
     import torch
     import torch.nn.functional as F
 
     from mxdetection_tpu_torch.ops import dcn as tdcn
-    from mxdetection_tpu_torch.ops.cuda.deform_conv import (deform_col2im_cuda,
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import (col2im_window_split,
+                                                            deform_col2im_cuda,
                                                             deform_patches_doffsets_cuda)
 
+    k7_build_facts()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(20)
@@ -1398,6 +1504,17 @@ def phase_deform_conv_bwd(device) -> dict:
         k6_plain = lambda: tdcn.deform_patches_doffsets(x16, off, dp16, **kw)  # noqa: E731
         k7 = lambda: deform_col2im_cuda(dp16, off, x16.shape, **kw)  # noqa: E731
         k7_plain = lambda: tdcn.deform_col2im(dp16, off, x16.shape, **kw)  # noqa: E731
+        dx16, dx16_ref = k7(), k7_plain()  # the bf16 build against the plain version
+        torch.cuda.synchronize()
+        errs["dx bf16"] = ((dx16 - dx16_ref).abs().max().item(), dx16_ref.abs().max().item())
+        if not torch.isfinite(dx16).all() or errs["dx bf16"][0] > 1e-4 * errs["dx bf16"][1]:
+            fail(f"K7 {shape} bf16 dpatch: max_abs_err {errs['dx bf16'][0]:.3e} of max|ref| "
+                 f"{errs['dx bf16'][1]:.3e} (bound 1e-4 max|ref|)")
+        del dx16, dx16_ref
+        off1 = off / 1.5  # the same draws at std 1 cell
+        k7_std1 = lambda: deform_col2im_cuda(dp16, off1, x16.shape, **kw)  # noqa: E731
+        spill = {std: col2im_window_split(dp16[:1], o[:1], (1, h, w, c), **kw)[2]
+                 / (ho * wo * 9 * 4) for std, o in ((1.5, off), (1.0, off1))}
         xc = x16.permute(0, 3, 1, 2)  # NCHW views of NHWC memory: channels_last
         gc = g16.permute(0, 3, 1, 2)
         wc = w16.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -1408,7 +1525,7 @@ def phase_deform_conv_bwd(device) -> dict:
         whole = lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True)  # noqa: E731
         g2, w2, p2 = g16.reshape(-1, c), w16.reshape(9 * c, c), k6()[0].reshape(-1, 9 * c)
         plain6, plain7 = time_ms(k6_plain, reps=3, warmup=1), time_ms(k7_plain, reps=3, warmup=1)
-        t = {"k6": time_ms(k6), "k7": time_ms(k7),
+        t = {"k6": time_ms(k6), "k7": time_ms(k7), "k7_std1": time_ms(k7_std1),
              "wgrad": time_ms(cudnn([False, True, False])),
              "dgrad": time_ms(cudnn([True, False, False])),
              "whole": time_ms(whole), "cudnn": time_ms(cudnn([True, True, False])),
@@ -1421,20 +1538,24 @@ def phase_deform_conv_bwd(device) -> dict:
         log(f"K6{tag}/K7{tag} {shape} -> {ho}x{wo}, x{n} a batch: f32 max_abs_err patches "
             f"{errs['patches'][0]:.3e} (identical: {errs['patches'][0] == 0.0}), doffsets "
             f"{errs['doffsets'][0]:.3e} of {errs['doffsets'][1]:.3e}, dx {errs['dx'][0]:.3e} of "
-            f"{errs['dx'][1]:.3e} (<= 1e-4 max|ref|: ok); bf16 backward vs f32 plain, "
+            f"{errs['dx'][1]:.3e}, dx on bf16 dpatch {errs['dx bf16'][0]:.3e} of "
+            f"{errs['dx bf16'][1]:.3e} (<= 1e-4 max|ref|: ok); bf16 backward vs f32 plain, "
             f"norm-relative: dx {rel['dx']:.4f}, dW {rel['dW']:.4f} (< 0.03), doffsets "
             f"{rel['doffsets']:.4f} (< 0.06): {'ok' if ok16 else 'FAILED'}")
         log(f"K6{tag} bf16 {t['k6']:.4f} ms, plain {plain6:.4f} ms, cuDNN wgrad "
             f"{t['wgrad']:.4f} ms, bound {b6:.4f} ms ({by6}); K7{tag} bf16 {t['k7']:.4f} ms, "
             f"plain {plain7:.4f} ms, cuDNN dgrad {t['dgrad']:.4f} ms, bound {b7:.4f} ms "
-            f"({by7}); whole DCN backward {t['whole']:.4f} ms (matmuls dpatch = g W^T "
+            f"({by7}), {t['k7_std1']:.4f} ms on offsets of std 1 (corners spilled out of the "
+            f"windows, image 0: {100 * spill[1.5]:.3f} % at std 1.5, {100 * spill[1.0]:.3f} % "
+            f"at std 1); whole DCN backward {t['whole']:.4f} ms (matmuls dpatch = g W^T "
             f"{t['dpatch_mm']:.4f} ms, dW = patches^T g {t['dw_mm']:.4f} ms), cuDNN conv "
             f"backward {t['cudnn']:.4f} ms ({shape})")
         if not ok16:
             fail(f"the bf16 DCN backward disagrees with the f32 plain one at {shape}")
         for kind, ms, plain_ms, lib_ms, bnd, by, err in (
                 ("k6", t["k6"], plain6, t["wgrad"], b6, by6, errs["doffsets"][0]),
-                ("k7", t["k7"], plain7, t["dgrad"], b7, by7, errs["dx"][0])):
+                ("k7", t["k7"], plain7, t["dgrad"], b7, by7,
+                 max(errs["dx"][0], errs["dx bf16"][0]))):
             r = res[(kind, stride)]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bnd),
@@ -1445,9 +1566,14 @@ def phase_deform_conv_bwd(device) -> dict:
             r["by_shape"][shape] = {"layers": n, "ms": ms, "plain_ms": plain_ms,
                                     "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
                                     "whole_bwd_ms": t["whole"], "cudnn_bwd_ms": t["cudnn"],
+                                    **({"ms_std1": t["k7_std1"], "spill_share": spill[1.5],
+                                        "spill_share_std1": spill[1.0]} if kind == "k7" else {}),
                                     "dpatch_mm_ms": t["dpatch_mm"], "dw_mm_ms": t["dw_mm"]}
-        del x32, off, w32, g32, dp32, x16, w16, g16, dp16, leaves, out, off16, g2, w2, p2
+        del x32, off, off1, w32, g32, dp32, x16, w16, g16, dp16, leaves, out, off16, g2, w2, p2
         torch.cuda.empty_cache()
+    for what, (ms, share) in col2im_checks(device, torch.Generator().manual_seed(21)).items():
+        res[("k7", 2 if "s2" in what else 1)].setdefault("spill_checks", {})[what] = {
+            "ms": ms, "spill_share": share}
 
     # radius 3 and zero offsets, in f32, at a stage-3 shape
     x = torch.randn((b, 52, 84, 256), generator=gen).to(device)
@@ -1617,7 +1743,9 @@ def main() -> int:
         # per step of the cascade training path; library_ms is cuDNN's wgrad
         # (beside K6) and dgrad (beside K7) of the same shapes
     ] + [{**entry(name, "deform_conv_bwd.cu", replaces, name, k67[key]),
-          "by_shape": k67[key]["by_shape"]} for name, replaces, key in (
+          "by_shape": k67[key]["by_shape"],
+          **{k: v for k, v in k67[key].items() if k == "spill_checks"}}
+         for name, replaces, key in (
               ("deform_patches_doffsets", K6_REPLACES, ("k6", 1)),
               ("deform_patches_doffsets_s2", K6B_REPLACES, ("k6", 2)),
               ("deform_col2im", K7_REPLACES, ("k7", 1)),

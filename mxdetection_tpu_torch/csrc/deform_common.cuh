@@ -92,6 +92,30 @@ __device__ __forceinline__ TapSample sample_tap(const Geometry& g,
   return s;
 }
 
+// The integer position (y0, x0) of the top-left corner of tap t at output
+// pixel m, from sample_tap's f32 operations. sample_tap clamps each corner
+// into the map for its address; here nothing is clamped into the map, the
+// position is only pinned to [-2, H] x [-2, W] (a corner pair beyond that
+// weighs zero either way), so it fits a small integer. NaN pins to -2.
+__device__ __forceinline__ int2 tap_corner(const Geometry& g, const float* __restrict__ offsets,
+                                           int m, int t) {
+  const int b = m / (g.Ho * g.Wo);
+  const int rem = m - b * g.Ho * g.Wo;
+  const int i = rem / g.Wo;
+  const int j = rem - i * g.Wo;
+  const int ty = t / 3, tx = t - 3 * (t / 3);
+  float dy = offsets[(size_t)m * (2 * kTaps) + 2 * t];
+  float dx = offsets[(size_t)m * (2 * kTaps) + 2 * t + 1];
+  if (g.radius >= 0.0f) {
+    dy = fminf(fmaxf(dy, -g.radius), g.radius);
+    dx = fminf(fmaxf(dx, -g.radius), g.radius);
+  }
+  const float y0 = floorf(__fadd_rn((float)(i * g.stride + ty * g.dil - g.pad), dy));
+  const float x0 = floorf(__fadd_rn((float)(j * g.stride + tx * g.dil - g.pad), dx));
+  return make_int2((int)fminf(fmaxf(y0, -2.0f), (float)g.H),
+                   (int)fminf(fmaxf(x0, -2.0f), (float)g.W));
+}
+
 // The patch value of one channel: the corner values (read at the clamped
 // addresses) times their masked weights, summed in the plain version's order.
 __device__ __forceinline__ float blend(float v00, float v01, float v10, float v11,

@@ -9,7 +9,9 @@ Counterparts of ``mxdetection_tpu/ops/pallas/dcn.py``:
   ``_patches_kernel_s2`` (K6b), the patches rebuilt for dW with the offset
   gradient reduced over channels in the same pass;
 - ``deform_col2im_cuda``: ``_dx_kernel`` (K7) and ``_dx_kernel_s2`` (K7b),
-  dx as the transpose of the sampling.
+  dx as the transpose of the sampling, summed per output tile in a
+  shared-memory window; ``col2im_window_split`` is the plain model of that
+  partition.
 
 Reached from ``ops/dcn.py::DeformConvFunction`` for CUDA tensors; the plain
 versions are ``ops/dcn.py::deform_conv2d``, ``deform_patches_doffsets`` and
@@ -19,9 +21,16 @@ launch counter.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
+import re
+
 import torch
 
+from . import build
 from .build import LaunchCount, check, load_library
+from ..dcn import _bilinear_weights, _corners
 
 launch_count = LaunchCount("deform_conv")        # K5, stride 1
 s2_launch_count = LaunchCount("deform_conv_s2")  # K5b, stride 2
@@ -209,7 +218,9 @@ def deform_col2im_cuda(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
                        radius: float | None = None) -> torch.Tensor:
     """K7 (stride 1) / K7b (stride 2): dpatch (B, Ho, Wo, 9C) contiguous, f32
     or bf16; offsets (B, Ho, Wo, 18) f32 -> dx (B, H, W, C) f32 for x of
-    ``x_shape`` (f32 atomics into a zeroed buffer; the caller casts)."""
+    ``x_shape`` (H, W at most 16384), summed per tile in shared memory
+    (``col2im_window_split``) and added with f32 atomics into a zeroed
+    buffer; the caller casts."""
     what = "deform_col2im_cuda"
     b, h, w, c, ho, wo = _check_geometry(what, tuple(x_shape), offsets, stride, dilation)
     _check_dpatch(what, dpatch, b, ho, wo, c)
@@ -220,3 +231,89 @@ def deform_col2im_cuda(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
             int(dpatch.dtype == torch.bfloat16))
     (col2im_launch_count if stride == 1 else col2im_s2_launch_count).add()
     return dx
+
+
+# ---------------------------------------------------------------- K7's window
+# The kernel's constants live in its source alone; the plain model reads them
+# from there (``col2im_config``). The window it derives from them is held, on
+# the card, against what the built kernel reports (``mxdet_deform_col2im_layout``).
+COL2IM_SOURCE = "deform_conv_bwd.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _col2im_constants(csrc_dir: str) -> dict:
+    with open(os.path.join(csrc_dir, COL2IM_SOURCE)) as f:
+        text = f.read()
+    reach = re.search(r"constexpr int kReach = (\d+);", text)
+    lane = re.search(r"constexpr int kCV = (\d+);", text)
+    tiles = {int(s): (int(th), int(tw)) for s, th, tw in re.findall(
+        r"struct Col2imTile<(\d)> \{ static constexpr int kTH = (\d+), kTW = (\d+); \};", text)}
+    if reach is None or lane is None or sorted(tiles) != [1, 2]:
+        raise RuntimeError(f"{COL2IM_SOURCE}: kReach, kCV or Col2imTile<1|2> not found")
+    return {"reach": int(reach.group(1)), "chunk": 32 * int(lane.group(1)), **tiles}
+
+
+def col2im_config(stride: int, csrc_dir: str | None = None) -> dict:
+    """K7's partition at ``stride`` from the kernel source's constants
+    (``csrc_dir``, the package's by default): ``tile`` (rows, cols of output
+    pixels a block owns), ``chunk`` (channels it sums at once), ``reach``,
+    and the window: ``origin`` (its first input row is the tile's first
+    output row * stride - origin; columns alike) and ``window`` (its rows,
+    cols: the tile's stride (rows - 1) + 1 base rows, the taps' +-1, the
+    reach on both sides and the far corner y0 + 1). So a corner lands in the
+    window for offsets from -reach to reach + 1 cells."""
+    const = _col2im_constants(csrc_dir or build.CSRC_DIR)
+    tile, reach = const[stride], const["reach"]
+    return {"tile": tile, "chunk": const["chunk"], "reach": reach, "origin": reach + 1,
+            "window": tuple(stride * (n - 1) + 2 * reach + 4 for n in tile)}
+
+
+def col2im_layout_cuda(stride: int, is_bf16: bool) -> dict:
+    """What the built kernel reports at ``stride`` for bf16 or f32 dpatch, in
+    ``col2im_config``'s keys (no ``reach``), plus ``smem`` (dynamic shared
+    memory a block, bytes). Builds the library on first use; launches
+    nothing."""
+    out = (ctypes.c_int * 7)()
+    check(load_library().mxdet_deform_col2im_layout(stride, int(is_bf16), out),
+          "mxdet_deform_col2im_layout")
+    th, tw, wr, wc, origin, chunk, smem = out
+    return {"tile": (th, tw), "chunk": chunk, "origin": origin, "window": (wr, wc), "smem": smem}
+
+
+def col2im_window_split(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
+                        stride: int = 1, dilation: int = 1, radius: float | None = None,
+                        tile: tuple | None = None, reach: int | None = None) -> tuple:
+    """Plain model of K7's partition of ``ops/dcn.py::deform_col2im``: every
+    term dpatch * w of a corner inside the map with a nonzero weight goes
+    either into the window of its output pixel's tile (output rows
+    [ti * th, ti * th + th), the window's first input row
+    ti * th * stride - reach - 1, ``col2im_config``'s rows; columns alike)
+    or, outside it, straight into dx (a spill). ``tile`` and ``reach``
+    default to the kernel's. Returns (in-window sum, spilled sum), each
+    (B, H, W, C) float32, and the number of spilled corners; the two sums add
+    up to ``deform_col2im``."""
+    conf = col2im_config(stride)
+    th, tw = tile or conf["tile"]
+    reach = conf["reach"] if reach is None else reach
+    wr, wc = (stride * (n - 1) + 2 * reach + 4 for n in (th, tw))
+    b, h, w, c = x_shape
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    ly, lx, corners = _corners((b, h, w), offsets, kernel=3, stride=stride, dilation=dilation,
+                               radius=radius)
+    dev = offsets.device
+    oy = ((torch.arange(ho, device=dev) // th) * th * stride - reach - 1).view(1, ho, 1, 1, 1)
+    ox = ((torch.arange(wo, device=dev) // tw) * tw * stride - reach - 1).view(1, 1, wo, 1, 1)
+    dp = dpatch.float().reshape(b, ho, wo, 3, 3, c)
+    inside = torch.zeros((b * h * w, c), dtype=torch.float32, device=dev)
+    spilled = torch.zeros_like(inside)
+    n_spilled = 0
+    for (rows, inb), wgt in zip(corners, _bilinear_weights(ly, lx)):
+        wt = wgt * inb
+        y, x = (rows % (h * w)) // w, rows % w  # the corner's cell where its weight is nonzero
+        in_win = (y - oy >= 0) & (y - oy < wr) & (x - ox >= 0) & (x - ox < wc)
+        spill = (wt != 0) & ~in_win
+        n_spilled += int(spill.sum())
+        flat = rows.reshape(-1)
+        inside.index_add_(0, flat, (dp * (wt * in_win)[..., None]).reshape(-1, c))
+        spilled.index_add_(0, flat, (dp * (wt * ~in_win)[..., None]).reshape(-1, c))
+    return inside.reshape(b, h, w, c), spilled.reshape(b, h, w, c), n_spilled

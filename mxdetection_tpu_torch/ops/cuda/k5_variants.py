@@ -22,16 +22,9 @@ the spread between rounds shows beside the differences between variants.
 
 from __future__ import annotations
 
-import os
-import shutil
-
 from . import build
+from .variants import LAYERS, build_variants, copy_with_edits, time_ms, use_variant
 
-LAYERS = [  # (input H, W, channels, stride, layers of this shape a batch); Cin = Cout
-    (208, 336, 128, 2, 1), (104, 168, 128, 1, 3), (104, 168, 256, 2, 1),
-    (52, 84, 256, 1, 22), (52, 84, 512, 2, 1), (26, 42, 512, 1, 2),
-]
-REPS = 20
 FENCE = ('        asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");'
          '  // visible to wgmma\n')
 VARIANTS = {
@@ -69,19 +62,7 @@ VARIANTS = {
 def make_variant(name: str, src_dir: str, root: str) -> str:
     """Copy ``src_dir`` (a csrc/) to ``root/csrc`` with variant ``name``'s
     edits applied to deform_conv.cu; -> the copy's csrc directory."""
-    shutil.rmtree(root, ignore_errors=True)
-    csrc = os.path.join(root, "csrc")
-    shutil.copytree(src_dir, csrc)
-    path = os.path.join(csrc, "deform_conv.cu")
-    with open(path) as f:
-        text = f.read()
-    for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} does not occur exactly once")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text)
-    return csrc
+    return copy_with_edits(src_dir, root, "deform_conv.cu", VARIANTS[name])
 
 
 def main() -> int:
@@ -92,18 +73,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants run only on the card")
-    src_dir, build_dir = build.CSRC_DIR, build.BUILD_DIR
-    libs = {}
-    for name in VARIANTS:
-        root = os.path.join(build_dir, "k5_variants", name)
-        csrc = make_variant(name, src_dir, root)
-        build.CSRC_DIR, build.BUILD_DIR = csrc, os.path.join(root, "_build")
-        _, secs, report = build.build()
-        regs = [ln.split(":", 1)[1].strip() for ln in report.splitlines()
-                if "Used" in ln and "registers" in ln]
-        print(f"built {name} in {secs:.1f} s: {regs}", flush=True)
-        libs[name] = (build.CSRC_DIR, build.BUILD_DIR)
-    build.CSRC_DIR, build.BUILD_DIR = src_dir, build_dir
+    own = (build.CSRC_DIR, build.BUILD_DIR)
+    libs = build_variants(VARIANTS, make_variant, "k5_variants")
 
     gen = torch.Generator().manual_seed(0)
     cases = []
@@ -115,35 +86,23 @@ def main() -> int:
         ref = deform_conv2d(x, off, wt, stride=stride).float()
         cases.append((f"{h}x{w}x{c} s{stride}", stride, n, x, off, wt, ref))
 
-    def time_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / REPS
-
     print(f"card: {torch.cuda.get_device_name(0)}; ms per call, K5 / K5b per batch")
-    for rnd in range(2):
-        for name, (csrc, bdir) in libs.items():
-            build.CSRC_DIR, build.BUILD_DIR = csrc, bdir
-            build.load_library.cache_clear()
-            right, total, per_shape = True, {1: 0.0, 2: 0.0}, []
-            for shape, stride, n, x, off, wt, ref in cases:
-                got = dc.deform_conv2d_cuda(x, off, wt, stride=stride).float()
-                tol = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
-                right &= bool(((got - ref).abs() <= tol).all())
-                ms = time_ms(lambda: dc.deform_conv2d_cuda(x, off, wt, stride=stride))
-                total[stride] += n * ms
-                per_shape.append(f"{shape} {ms:.4f}")
-            print(f"round {rnd} {name:20s} {'ok' if right else 'wrong'} K5 {total[1]:.3f} "
-                  f"K5b {total[2]:.3f}; " + ", ".join(per_shape), flush=True)
-    build.CSRC_DIR, build.BUILD_DIR = src_dir, build_dir
-    build.load_library.cache_clear()
+    try:
+        for rnd in range(2):
+            for name, dirs in libs.items():
+                use_variant(dirs)
+                right, total, per_shape = True, {1: 0.0, 2: 0.0}, []
+                for shape, stride, n, x, off, wt, ref in cases:
+                    got = dc.deform_conv2d_cuda(x, off, wt, stride=stride).float()
+                    tol = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+                    right &= bool(((got - ref).abs() <= tol).all())
+                    ms = time_ms(lambda: dc.deform_conv2d_cuda(x, off, wt, stride=stride))
+                    total[stride] += n * ms
+                    per_shape.append(f"{shape} {ms:.4f}")
+                print(f"round {rnd} {name:20s} {'ok' if right else 'wrong'} K5 {total[1]:.3f} "
+                      f"K5b {total[2]:.3f}; " + ", ".join(per_shape), flush=True)
+    finally:
+        use_variant(own)
     return 0
 
 
