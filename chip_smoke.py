@@ -50,24 +50,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
-10. holds the deformable conv's backward kernels (K6/K6b: the patches
-   rebuilt with the offset gradient reduced over channels; K7/K7b: dx, the
-   terms of an output tile's taps sorted by input cell in shared memory,
-   each cell summed in registers and added with a vector atomic) against
-   their plain versions at the six DCN layer shapes
-   (offsets of std 1.5 cells): f32 within 1e-4 of the largest gradient, K7
-   on the bf16 dpatch of the main path as well, and the whole bf16
-   backward of ``DeformConvFunction`` against the f32 plain one,
+10. holds the deformable conv's backward kernels (K6/K6b: the fused weight
+   gradient, dW = patches^T g on the tensor cores from patch tiles built in
+   shared memory, with the offset gradient reduced over channels; K7/K7b:
+   dx, the terms of an output tile's taps sorted by input cell in shared
+   memory, each cell summed in registers and added with a vector atomic)
+   against their plain versions at the six DCN layer shapes (offsets of
+   std 1.5 cells): f32 dW, doffsets and dx within 1e-4 of the largest
+   value, K6 and K7 on the bf16 inputs of the main path as well, and the
+   whole bf16 backward of ``DeformConvFunction`` against the f32 plain one,
    norm-relative under 3 % (dx, dW) and 6 % (doffsets); also with
-   ``radius=3`` and at zero offsets against ``F.conv2d``'s gradients, and
-   K7 on f32 and bf16 dpatch with offsets of std 6 cells and some at +-40
-   (corners spilled out of the windows and off the map, timed beside the
-   spill share) and at dilation 2; logs ptxas's lines of K7 (failing on
-   spills), the window the built kernel reports (failing where it is not
-   the plain model's) and its SASS's atomics; times each kernel, its plain
-   version and cuDNN's conv backward of the same shape (wgrad beside K6,
-   dgrad beside K7), and K7 also on offsets of std 1 cell, about the main
-   path's;
+   ``radius=3``, on a ragged M, at zero offsets against ``F.conv2d``'s
+   gradients (f32) and cuDNN's wgrad (bf16 values), and K7 on f32 and bf16
+   dpatch with offsets of std 6 cells and some at +-40 (corners spilled out
+   of the windows and off the map, timed beside the spill share) and at
+   dilation 2; logs ptxas's lines of K6 and K7 (failing on spills), K6's
+   ``HGMMA`` count (failing on none), the partition and the window the
+   built kernels report (failing where they are not the plain models'),
+   K7's SASS atomics, and the peak memory of the whole DCN backward at the
+   stage-3 shape; times each kernel, its plain version and cuDNN's conv
+   backward of the same shape (wgrad beside K6, dgrad beside K7), the dW
+   matmul that K6 replaced, and K7 also on offsets of std 1 cell, about
+   the main path's;
 11. drives the Cascade R-CNN R101-DCN training path at full width:
    ``Trainer.run_step`` in bf16 with seeded weights and the offset-conv
    noise of step 8, 2 warm-up and 10 timed steps, every kernel's launch count
@@ -91,7 +95,7 @@ Each kernel's ``bound_ms`` is the least time the card could take for the
 same work on this run's inputs: the largest of the bytes the function must
 move (each input read once, each output written once) over 3.35 TB/s, its
 f32 operations over 67 TFLOP/s (outside the tensor cores) and, for the
-deformable conv's bf16 product, its tensor-core operations over 989
+deformable conv's bf16 products (K5, K6), its tensor-core operations over 989
 TFLOP/s: the H100 SXM's published peaks. The DCN kernels' times, bounds
 and yardsticks are summed over the DCN layers of a batch (K5, K5b) or of a
 training step (K6, K6b, K7, K7b).
@@ -840,6 +844,37 @@ def k5_build_facts() -> None:
         fail(f"K5: no HGMMA in the SASS of {name}")
 
 
+def k6_build_facts(device) -> None:
+    """Log what nvcc made of the bf16 K6 kernel (``wgrad_kernel``, one
+    instantiation a tile width): ptxas's lines (registers, spills), the count
+    of ``HGMMA`` (wgmma) instructions in its SASS, failing on spills or on a
+    kernel without wgmma; and the partition the built kernel reports at the
+    six DCN layer shapes (``wgrad_layout_cuda``), failing where it is not
+    the plain model's (``wgrad_config``, read from the source)."""
+    import torch
+
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import wgrad_config, wgrad_layout_cuda
+
+    name = "wgrad_kernel"
+    funcs = ptxas_facts(name, "K6")
+    hgmma = {fname: func.count("HGMMA") for fname, func in funcs.items()}
+    log(f"K6 SASS (cuobjdump): HGMMA instructions by instantiation {hgmma}")
+    if len(hgmma) < 2 or not all(hgmma.values()):
+        fail(f"K6: no HGMMA in the SASS of {name} (both tile widths)")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for stage, h, w, c, stride, _ in DCN_LAYERS:
+        m = MAIN_BATCH * -(-h // stride) * -(-w // stride)
+        for bf16 in (True, False):
+            built, model = wgrad_layout_cuda(c, c, m, sms, bf16), wgrad_config(c, c, m, sms=sms,
+                                                                                bf16=bf16)
+            same = all(built[k] == v for k, v in model.items())
+            log(f"K6 {stage} s{stride} {'bf16' if bf16 else 'f32'} ({sms} SMs): built kernel "
+                f"{built} (smem: dynamic shared memory a block, bytes), plain model {model}: "
+                f"{'same' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"K6 {stage} s{stride}: the built kernel's partition is not the plain model's")
+
+
 def k7_build_facts() -> None:
     """Log what nvcc made of K7/K7b (``deform_col2im_kernel``, one
     instantiation a dtype and stride): ptxas's lines, failing on spills; the
@@ -1352,12 +1387,14 @@ def phase_train_path(device, card: str, counters, profile_dir: str | None) -> di
 
 
 def dcn_bwd_bounds(off, h: int, w: int, c: int, stride: int, dtype) -> tuple:
-    """(K6's, K7's) (least ms, bound by) on these offsets. K6 reads x,
-    offsets and dpatch once and writes the patches and doffsets once, and
-    does about 21 f32 operations per sampled value (the blend's 7, two
-    derivative terms of 7); K7 reads dpatch and the offsets and writes an
-    f32 dx once, and does a multiply and an add for each channel of each
-    corner inside the map with a nonzero weight, counted on these offsets."""
+    """(K6's, K7's) (least ms, bound by) on these offsets, Cin = Cout = c.
+    K6 reads x, the offsets, dpatch and g once and writes dW (f32) and
+    doffsets once, does about 21 f32 operations per sampled value (the
+    blend's 7, two derivative terms of 7) and the product's 2 * M * 9c * c
+    on the tensor cores (bf16) or the f32 units; K7 reads dpatch and the
+    offsets and writes an f32 dx once, and does a multiply and an add for
+    each channel of each corner inside the map with a nonzero weight,
+    counted on these offsets."""
     import torch
 
     from mxdetection_tpu_torch.ops.dcn import _bilinear_weights, _corners
@@ -1368,8 +1405,11 @@ def dcn_bwd_bounds(off, h: int, w: int, c: int, stride: int, dtype) -> tuple:
     ly, lx, corners = _corners((b, h, w), off, kernel=3, stride=stride, dilation=1, radius=None)
     live = sum(int(((wgt * inb) != 0).sum()) for (_, inb), wgt in
                zip(corners, _bilinear_weights(ly, lx)))
-    k6 = bound(b * h * w * c * size + m * 18 * 4 + 2 * m * 9 * c * size + m * 18 * 4,
-               21.0 * m * 9 * c)
+    k6_bytes = (b * h * w * c * size + m * 18 * 4 + m * 9 * c * size + m * c * size
+                + 9 * c * c * 4 + m * 18 * 4)
+    gemm = 2.0 * m * 9 * c * c
+    k6 = (bound(k6_bytes, 21.0 * m * 9 * c, gemm) if dtype == torch.bfloat16
+          else bound(k6_bytes, 21.0 * m * 9 * c + gemm))
     k7 = bound(m * 9 * c * size + m * 18 * 4 + b * h * w * c * 4, 2.0 * live * c)
     return k6, k7
 
@@ -1435,23 +1475,28 @@ def col2im_checks(device, gen) -> dict:
 
 def phase_deform_conv_bwd(device) -> dict:
     """K6/K6b and K7/K7b against their plain versions at the six DCN layer
-    shapes of the cascade path, batch 8, offsets of std 1.5 cells: f32
-    within 1e-4 of the largest gradient; the whole bf16 backward
+    shapes of the cascade path, batch 8, offsets of std 1.5 cells: f32 dW,
+    doffsets and dx within 1e-4 of the largest value, and the bf16 builds on
+    the main path's bf16 inputs too; the whole bf16 backward
     (``DeformConvFunction``) against the f32 plain one, norm-relative under
     3 % for dx and dW and 6 % for doffsets. Times each kernel, its plain
     version and cuDNN's conv backward of the same shape (dgrad beside K7,
-    wgrad beside K6: the same function only at zero offsets), and K7 again
-    on offsets of std 1 cell (about the main path's), beside the share of
-    corners that spill out of K7's windows at both. Then K7's spill-heavy
-    and dilation-2 checks (``col2im_checks``)."""
+    wgrad beside K6: the same function only at zero offsets), the dW matmul
+    on the plain version's patches that K6 replaced, and K7 again on
+    offsets of std 1 cell (about the main path's), beside the share of
+    corners that spill out of K7's windows at both; logs the peak memory of
+    the whole DCN backward at the stage-3 shape. Then K7's spill-heavy and
+    dilation-2 checks (``col2im_checks``) and the radius-3, ragged-M and
+    zero-offset checks."""
     import torch
     import torch.nn.functional as F
 
     from mxdetection_tpu_torch.ops import dcn as tdcn
     from mxdetection_tpu_torch.ops.cuda.deform_conv import (col2im_window_split,
                                                             deform_col2im_cuda,
-                                                            deform_patches_doffsets_cuda)
+                                                            deform_wgrad_doffsets_cuda)
 
+    k6_build_facts(device)
     k7_build_facts()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1472,21 +1517,25 @@ def phase_deform_conv_bwd(device) -> dict:
         kw = dict(stride=stride)
 
         # f32: each kernel against its plain version on the same dpatch
-        dp32 = (g32.reshape(-1, c) @ w32.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
-        p_ref, d_ref = tdcn.deform_patches_doffsets(x32, off, dp32, **kw)
-        p_got, d_got = deform_patches_doffsets_cuda(x32, off, dp32, **kw)
+        g2_32 = g32.reshape(-1, c)
+        dp32 = (g2_32 @ w32.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
+        dw_ref, d_ref = tdcn.deform_wgrad_doffsets(x32, off, dp32, g2_32, **kw)
+        dw_got, d_got = deform_wgrad_doffsets_cuda(x32, off, dp32, g2_32, **kw)
         dx_ref = tdcn.deform_col2im(dp32, off, x32.shape, **kw)
         dx_got = deform_col2im_cuda(dp32, off, x32.shape, **kw)
         torch.cuda.synchronize()
         errs = {}
-        for name, got, ref in (("patches", p_got, p_ref), ("doffsets", d_got, d_ref),
-                               ("dx", dx_got, dx_ref)):
+
+        def hold(name, got, ref):
             errs[name] = ((got - ref).abs().max().item(), ref.abs().max().item())
             if not torch.isfinite(got).all() or errs[name][0] > 1e-4 * errs[name][1]:
-                fail(f"K6/K7 {shape} f32 {name}: max_abs_err {errs[name][0]:.3e} of max|ref| "
+                fail(f"K6/K7 {shape} {name}: max_abs_err {errs[name][0]:.3e} of max|ref| "
                      f"{errs[name][1]:.3e} (bound 1e-4 max|ref|)")
-        dw_ref = p_ref.reshape(-1, 9 * c).t() @ g32.reshape(-1, c)
-        del p_ref, p_got
+
+        for name, got, ref in (("dW", dw_got, dw_ref), ("doffsets", d_got, d_ref),
+                               ("dx", dx_got, dx_ref)):
+            hold(name, got, ref)
+        del dw_got, d_got
 
         # bf16: the Function's backward on the card against the f32 plain one
         x16, w16, g16 = (t.bfloat16().requires_grad_() for t in (x32, w32, g32))
@@ -1496,21 +1545,23 @@ def phase_deform_conv_bwd(device) -> dict:
         rel = {"dx": rel_norm(x16.grad, dx_ref), "doffsets": rel_norm(off16.grad, d_ref),
                "dW": rel_norm(w16.grad, dw_ref.reshape(3, 3, c, c))}
         ok16 = rel["dx"] < 0.03 and rel["dW"] < 0.03 and rel["doffsets"] < 0.06
-        del dx_ref, d_ref, dw_ref, dx_got, d_got
+        del dx_ref, d_ref, dw_ref, dx_got
 
         x16, w16, g16 = x16.detach(), w16.detach(), g16.detach()
-        dp16 = (g16.reshape(-1, c) @ w16.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
-        k6 = lambda: deform_patches_doffsets_cuda(x16, off, dp16, **kw)  # noqa: E731
-        k6_plain = lambda: tdcn.deform_patches_doffsets(x16, off, dp16, **kw)  # noqa: E731
+        g2 = g16.reshape(-1, c)
+        dp16 = (g2 @ w16.reshape(9 * c, c).t()).reshape(b, ho, wo, 9 * c)
+        k6 = lambda: deform_wgrad_doffsets_cuda(x16, off, dp16, g2, **kw)  # noqa: E731
+        k6_plain = lambda: tdcn.deform_wgrad_doffsets(x16, off, dp16, g2, **kw)  # noqa: E731
         k7 = lambda: deform_col2im_cuda(dp16, off, x16.shape, **kw)  # noqa: E731
         k7_plain = lambda: tdcn.deform_col2im(dp16, off, x16.shape, **kw)  # noqa: E731
-        dx16, dx16_ref = k7(), k7_plain()  # the bf16 build against the plain version
+        # the bf16 builds against the plain versions on the same bf16 inputs
+        (dw16, d16), (dw16_ref, d16_ref) = k6(), k6_plain()
+        dx16, dx16_ref = k7(), k7_plain()
         torch.cuda.synchronize()
-        errs["dx bf16"] = ((dx16 - dx16_ref).abs().max().item(), dx16_ref.abs().max().item())
-        if not torch.isfinite(dx16).all() or errs["dx bf16"][0] > 1e-4 * errs["dx bf16"][1]:
-            fail(f"K7 {shape} bf16 dpatch: max_abs_err {errs['dx bf16'][0]:.3e} of max|ref| "
-                 f"{errs['dx bf16'][1]:.3e} (bound 1e-4 max|ref|)")
-        del dx16, dx16_ref
+        for name, got, ref in (("dW bf16", dw16, dw16_ref), ("doffsets bf16", d16, d16_ref),
+                               ("dx bf16", dx16, dx16_ref)):
+            hold(name, got, ref)
+        del dw16, d16, dw16_ref, d16_ref, dx16, dx16_ref
         off1 = off / 1.5  # the same draws at std 1 cell
         k7_std1 = lambda: deform_col2im_cuda(dp16, off1, x16.shape, **kw)  # noqa: E731
         spill = {std: col2im_window_split(dp16[:1], o[:1], (1, h, w, c), **kw)[2]
@@ -1523,7 +1574,8 @@ def phase_deform_conv_bwd(device) -> dict:
         leaves = [t.clone().requires_grad_() for t in (x16, off, w16)]
         out = tdcn.deform_conv2d_batched(*leaves, **kw)
         whole = lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True)  # noqa: E731
-        g2, w2, p2 = g16.reshape(-1, c), w16.reshape(9 * c, c), k6()[0].reshape(-1, 9 * c)
+        w2 = w16.reshape(9 * c, c)
+        p2 = tdcn.deform_patches_doffsets(x16, off, dp16, **kw)[0].reshape(-1, 9 * c)
         plain6, plain7 = time_ms(k6_plain, reps=3, warmup=1), time_ms(k7_plain, reps=3, warmup=1)
         t = {"k6": time_ms(k6), "k7": time_ms(k7), "k7_std1": time_ms(k7_std1),
              "wgrad": time_ms(cudnn([False, True, False])),
@@ -1533,27 +1585,42 @@ def phase_deform_conv_bwd(device) -> dict:
              "dw_mm": time_ms(lambda: tdcn._matmul_f32(p2.t(), g2))}
         plain6 = (plain6 + time_ms(k6_plain, reps=3, warmup=1)) / 2
         plain7 = (plain7 + time_ms(k7_plain, reps=3, warmup=1)) / 2
+        peak = None
+        if stage == "stage3" and stride == 1:  # the whole backward's peak above what it holds
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = whole()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del grads
+            log(f"whole DCN backward {shape}, bf16: peak device memory {peak / 2 ** 20:.1f} MiB "
+                f"above its inputs (torch.cuda.max_memory_allocated); the (M, 9C) bf16 patches "
+                f"it no longer makes would be {b * ho * wo * 9 * c * 2 / 2 ** 20:.1f} MiB")
+        del p2
         (b6, by6), (b7, by7) = dcn_bwd_bounds(off, h, w, c, stride, torch.bfloat16)
         tag = "b" if stride == 2 else ""
-        log(f"K6{tag}/K7{tag} {shape} -> {ho}x{wo}, x{n} a batch: f32 max_abs_err patches "
-            f"{errs['patches'][0]:.3e} (identical: {errs['patches'][0] == 0.0}), doffsets "
-            f"{errs['doffsets'][0]:.3e} of {errs['doffsets'][1]:.3e}, dx {errs['dx'][0]:.3e} of "
-            f"{errs['dx'][1]:.3e}, dx on bf16 dpatch {errs['dx bf16'][0]:.3e} of "
-            f"{errs['dx bf16'][1]:.3e} (<= 1e-4 max|ref|: ok); bf16 backward vs f32 plain, "
-            f"norm-relative: dx {rel['dx']:.4f}, dW {rel['dW']:.4f} (< 0.03), doffsets "
-            f"{rel['doffsets']:.4f} (< 0.06): {'ok' if ok16 else 'FAILED'}")
-        log(f"K6{tag} bf16 {t['k6']:.4f} ms, plain {plain6:.4f} ms, cuDNN wgrad "
+        log(f"K6{tag}/K7{tag} {shape} -> {ho}x{wo}, x{n} a batch: f32 max_abs_err dW "
+            f"{errs['dW'][0]:.3e} of {errs['dW'][1]:.3e}, doffsets {errs['doffsets'][0]:.3e} of "
+            f"{errs['doffsets'][1]:.3e}, dx {errs['dx'][0]:.3e} of {errs['dx'][1]:.3e}; bf16 "
+            f"inputs: dW {errs['dW bf16'][0]:.3e} of {errs['dW bf16'][1]:.3e}, doffsets "
+            f"{errs['doffsets bf16'][0]:.3e} of {errs['doffsets bf16'][1]:.3e}, dx "
+            f"{errs['dx bf16'][0]:.3e} of {errs['dx bf16'][1]:.3e} (<= 1e-4 max|ref|: ok); bf16 "
+            f"backward vs f32 plain, norm-relative: dx {rel['dx']:.4f}, dW {rel['dW']:.4f} "
+            f"(< 0.03), doffsets {rel['doffsets']:.4f} (< 0.06): {'ok' if ok16 else 'FAILED'}")
+        log(f"K6{tag} bf16 {t['k6']:.4f} ms (replaces the patches kernel and the dW matmul, "
+            f"alone {t['dw_mm']:.4f} ms here), plain {plain6:.4f} ms, cuDNN wgrad "
             f"{t['wgrad']:.4f} ms, bound {b6:.4f} ms ({by6}); K7{tag} bf16 {t['k7']:.4f} ms, "
             f"plain {plain7:.4f} ms, cuDNN dgrad {t['dgrad']:.4f} ms, bound {b7:.4f} ms "
             f"({by7}), {t['k7_std1']:.4f} ms on offsets of std 1 (corners spilled out of the "
             f"windows, image 0: {100 * spill[1.5]:.3f} % at std 1.5, {100 * spill[1.0]:.3f} % "
-            f"at std 1); whole DCN backward {t['whole']:.4f} ms (matmuls dpatch = g W^T "
-            f"{t['dpatch_mm']:.4f} ms, dW = patches^T g {t['dw_mm']:.4f} ms), cuDNN conv "
-            f"backward {t['cudnn']:.4f} ms ({shape})")
+            f"at std 1); whole DCN backward {t['whole']:.4f} ms (matmul dpatch = g W^T "
+            f"{t['dpatch_mm']:.4f} ms), cuDNN conv backward {t['cudnn']:.4f} ms ({shape})")
         if not ok16:
             fail(f"the bf16 DCN backward disagrees with the f32 plain one at {shape}")
         for kind, ms, plain_ms, lib_ms, bnd, by, err in (
-                ("k6", t["k6"], plain6, t["wgrad"], b6, by6, errs["doffsets"][0]),
+                ("k6", t["k6"], plain6, t["wgrad"], b6, by6,
+                 max(errs[k][0] for k in ("dW", "doffsets", "dW bf16", "doffsets bf16"))),
                 ("k7", t["k7"], plain7, t["dgrad"], b7, by7,
                  max(errs["dx"][0], errs["dx bf16"][0]))):
             r = res[(kind, stride)]
@@ -1567,9 +1634,11 @@ def phase_deform_conv_bwd(device) -> dict:
                                     "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
                                     "whole_bwd_ms": t["whole"], "cudnn_bwd_ms": t["cudnn"],
                                     **({"ms_std1": t["k7_std1"], "spill_share": spill[1.5],
-                                        "spill_share_std1": spill[1.0]} if kind == "k7" else {}),
-                                    "dpatch_mm_ms": t["dpatch_mm"], "dw_mm_ms": t["dw_mm"]}
-        del x32, off, off1, w32, g32, dp32, x16, w16, g16, dp16, leaves, out, off16, g2, w2, p2
+                                        "spill_share_std1": spill[1.0]} if kind == "k7" else
+                                       {"dw_mm_ms": t["dw_mm"]}),
+                                    **({"whole_bwd_peak_bytes": peak} if peak else {}),
+                                    "dpatch_mm_ms": t["dpatch_mm"]}
+        del x32, off, off1, w32, g32, dp32, x16, w16, g16, dp16, leaves, out, off16, g2, w2
         torch.cuda.empty_cache()
     for what, (ms, share) in col2im_checks(device, torch.Generator().manual_seed(21)).items():
         res[("k7", 2 if "s2" in what else 1)].setdefault("spill_checks", {})[what] = {
@@ -1580,12 +1649,14 @@ def phase_deform_conv_bwd(device) -> dict:
     off = (torch.randn((b, 52, 84, 18), generator=gen) * 1.5).to(device)
     wt = (torch.randn((3, 3, 256, 256), generator=gen) * (2.0 / (9 * 256)) ** 0.5).to(device)
     g = torch.randn((b, 52, 84, 256), generator=gen).to(device)
-    dp = (g.reshape(-1, 256) @ wt.reshape(-1, 256).t()).reshape(b, 52, 84, -1)
-    checks = [("radius 3 doffsets", deform_patches_doffsets_cuda(x, off, dp, radius=3)[1],
-               tdcn.deform_patches_doffsets(x, off, dp, radius=3)[1]),
+    g2 = g.reshape(-1, 256)
+    dp = (g2 @ wt.reshape(-1, 256).t()).reshape(b, 52, 84, -1)
+    got6 = deform_wgrad_doffsets_cuda(x, off, dp, g2, radius=3)
+    ref6 = tdcn.deform_wgrad_doffsets(x, off, dp, g2, radius=3)
+    checks = [("radius 3 dW", got6[0], ref6[0]), ("radius 3 doffsets", got6[1], ref6[1]),
               ("radius 3 dx", deform_col2im_cuda(dp, off, x.shape, radius=3),
                tdcn.deform_col2im(dp, off, x.shape, radius=3))]
-    if checks[0][1][off.abs() > 3].abs().max().item() != 0.0:
+    if got6[1][off.abs() > 3].abs().max().item() != 0.0:
         fail("K6 radius 3: a nonzero offset gradient beyond the clamp")
     leaves = [t.clone().requires_grad_() for t in (x, torch.zeros_like(off), wt)]
     tdcn.deform_conv2d_batched(*leaves).backward(g)
@@ -1593,11 +1664,40 @@ def phase_deform_conv_bwd(device) -> dict:
     F.conv2d(xc, wc, padding=1).permute(0, 2, 3, 1).backward(g)
     checks += [("zero offsets dx vs F.conv2d", leaves[0].grad, xc.grad.permute(0, 2, 3, 1)),
                ("zero offsets dW vs F.conv2d", leaves[2].grad, wc.grad.permute(2, 3, 1, 0))]
+    # K6 in bf16 at zero offsets against cuDNN's wgrad of the same bf16 values
+    # (computed in f32, TF32 off): the same exact products, summed in another order
+    for h, w, c in ((52, 84, 256), (26, 42, 512)):
+        x16 = torch.randn((b, h, w, c), generator=gen).to(device).bfloat16()
+        g16 = torch.randn((b, h, w, c), generator=gen).to(device).bfloat16()
+        w16 = (torch.randn((3, 3, c, c), generator=gen) * (2.0 / (9 * c)) ** 0.5).to(device)
+        w16 = w16.bfloat16()
+        dp16 = (g16.reshape(-1, c) @ w16.reshape(9 * c, c).t()).reshape(b, h, w, 9 * c)
+        dw16 = deform_wgrad_doffsets_cuda(x16, torch.zeros((b, h, w, 18), device=device), dp16,
+                                          g16.reshape(-1, c))[0]
+        wgrad = conv_bwd(g16.float().permute(0, 3, 1, 2), x16.float().permute(0, 3, 1, 2),
+                         w16.float().permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False,
+                         [0, 0], 1, [False, True, False])[1]
+        checks.append((f"zero offsets bf16 dW vs cuDNN wgrad {h}x{w}x{c}", dw16,
+                       wgrad.permute(2, 3, 1, 0).reshape(9 * c, c)))
+    # a ragged M (2 x 19 x 23 and 2 x 10 x 12 pixels: no whole 64-pixel chunk
+    # at the end) at both strides, f32 and bf16
+    xs = torch.randn((2, 19, 23, 128), generator=gen).to(device)
+    for stride in (1, 2):
+        ho, wo = -(-19 // stride), -(-23 // stride)
+        offs = (torch.randn((2, ho, wo, 18), generator=gen) * 1.5).to(device)
+        dps = torch.randn((2, ho, wo, 9 * 128), generator=gen).to(device)
+        gs = torch.randn((2 * ho * wo, 256), generator=gen).to(device)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (xs.to(dt), offs, dps.to(dt), gs.to(dt))
+            got, ref = (deform_wgrad_doffsets_cuda(*args, stride=stride),
+                        tdcn.deform_wgrad_doffsets(*args, stride=stride))
+            name = f"ragged M 2x19x23x128 -> 256 stride {stride} {str(dt)[6:]}"
+            checks += [(f"{name} dW", got[0], ref[0]), (f"{name} doffsets", got[1], ref[1])]
     torch.cuda.synchronize()
     for what, got, ref in checks:
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
-        log(f"K6/K7 {what} (f32): max_abs_err {err:.3e} of max|ref| {scale:.3e} "
+        log(f"K6/K7 {what}: max_abs_err {err:.3e} of max|ref| {scale:.3e} "
             f"(<= 1e-4 max|ref|: {'ok' if err <= 1e-4 * scale else 'FAILED'})")
         if not err <= 1e-4 * scale:
             fail(f"K6/K7 {what}: disagrees with its reference")
@@ -1661,8 +1761,8 @@ def phase_cascade_train_path(device, card: str, counters, profile_dir: str | Non
     launches = drive_train(trainer, batch, counters, card, "cascade train path", profile_dir,
                            "cascade_train_trace.json.gz")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    want = {"deform_conv": 27, "deform_conv_s2": 3, "deform_patches_doffsets": 27,
-            "deform_patches_doffsets_s2": 3, "deform_col2im": 27, "deform_col2im_s2": 3}
+    want = {"deform_conv": 27, "deform_conv_s2": 3, "deform_wgrad_doffsets": 27,
+            "deform_wgrad_doffsets_s2": 3, "deform_col2im": 27, "deform_col2im_s2": 3}
     if any(per_step.get(k) != v for k, v in want.items()):
         fail(f"cascade train path: expected {want} launches a step, got {per_step}")
     return launches
@@ -1712,8 +1812,8 @@ def main() -> int:
     paths["cascade_train"] = phase_cascade_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.convert_launch_count, iou_cuda.launch_count, dcn_cuda.launch_count,
-        dcn_cuda.s2_launch_count, dcn_cuda.patches_launch_count,
-        dcn_cuda.patches_s2_launch_count, dcn_cuda.col2im_launch_count,
+        dcn_cuda.s2_launch_count, dcn_cuda.wgrad_launch_count,
+        dcn_cuda.wgrad_s2_launch_count, dcn_cuda.col2im_launch_count,
         dcn_cuda.col2im_s2_launch_count], args.profile)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
@@ -1746,8 +1846,8 @@ def main() -> int:
           "by_shape": k67[key]["by_shape"],
           **{k: v for k, v in k67[key].items() if k == "spill_checks"}}
          for name, replaces, key in (
-              ("deform_patches_doffsets", K6_REPLACES, ("k6", 1)),
-              ("deform_patches_doffsets_s2", K6B_REPLACES, ("k6", 2)),
+              ("deform_wgrad_doffsets", K6_REPLACES, ("k6", 1)),
+              ("deform_wgrad_doffsets_s2", K6B_REPLACES, ("k6", 2)),
               ("deform_col2im", K7_REPLACES, ("k7", 1)),
               ("deform_col2im_s2", K7B_REPLACES, ("k7", 2)))]
     log(card)

@@ -59,17 +59,15 @@ __device__ __forceinline__ void corner(const Geometry& g, int b, float yi, float
 }
 
 // Tap t (row-major in the 3x3 window) at output pixel m (flattened b, i, j),
-// 0 <= m < g.M; offsets (M, 18) f32, (dy, dx) per tap.
-__device__ __forceinline__ TapSample sample_tap(const Geometry& g,
-                                                const float* __restrict__ offsets, int m, int t) {
+// 0 <= m < g.M, displaced by its offset (dy, dx).
+__device__ __forceinline__ TapSample sample_tap_at(const Geometry& g, int m, int t, float dy,
+                                                   float dx) {
   TapSample s;
   const int b = m / (g.Ho * g.Wo);
   const int rem = m - b * g.Ho * g.Wo;
   const int i = rem / g.Wo;
   const int j = rem - i * g.Wo;
   const int ty = t / 3, tx = t - 3 * (t / 3);
-  float dy = offsets[(size_t)m * (2 * kTaps) + 2 * t];
-  float dx = offsets[(size_t)m * (2 * kTaps) + 2 * t + 1];
   s.keep_y = s.keep_x = true;
   if (g.radius >= 0.0f) {
     s.keep_y = dy >= -g.radius && dy <= g.radius;
@@ -90,6 +88,13 @@ __device__ __forceinline__ TapSample sample_tap(const Geometry& g,
   s.ly = ly;
   s.lx = lx;
   return s;
+}
+
+// The same with the offset read from offsets (M, 18) f32, (dy, dx) per tap.
+__device__ __forceinline__ TapSample sample_tap(const Geometry& g,
+                                                const float* __restrict__ offsets, int m, int t) {
+  return sample_tap_at(g, m, t, offsets[(size_t)m * (2 * kTaps) + 2 * t],
+                       offsets[(size_t)m * (2 * kTaps) + 2 * t + 1]);
 }
 
 // The integer position (y0, x0) of the top-left corner of tap t at output

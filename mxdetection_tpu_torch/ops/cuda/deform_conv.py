@@ -5,16 +5,20 @@ Counterparts of ``mxdetection_tpu/ops/pallas/dcn.py``:
 
 - ``deform_conv2d_cuda``: ``_kernel`` (K5, stride 1) and ``_kernel_s2``
   (K5b, stride 2), the forward;
-- ``deform_patches_doffsets_cuda``: ``_patches_kernel`` (K6) and
-  ``_patches_kernel_s2`` (K6b), the patches rebuilt for dW with the offset
-  gradient reduced over channels in the same pass;
+- ``deform_wgrad_doffsets_cuda``: ``_patches_kernel`` (K6) and
+  ``_patches_kernel_s2`` (K6b) fused with the product dW = patches^T g and
+  the offset gradient's reduction over channels that followed them: the
+  patch values go from the gather straight into a tensor-core product in
+  shared memory; ``wgmma_g_tiles`` is the plain version of g's layout for
+  it, ``wgrad_config`` and ``wgrad_split`` the plain model of its
+  partition;
 - ``deform_col2im_cuda``: ``_dx_kernel`` (K7) and ``_dx_kernel_s2`` (K7b),
   dx as the transpose of the sampling, summed per output tile in a
   shared-memory window; ``col2im_window_split`` is the plain model of that
   partition.
 
 Reached from ``ops/dcn.py::DeformConvFunction`` for CUDA tensors; the plain
-versions are ``ops/dcn.py::deform_conv2d``, ``deform_patches_doffsets`` and
+versions are ``ops/dcn.py::deform_conv2d``, ``deform_wgrad_doffsets`` and
 ``deform_col2im``. One kernel serves both strides; each stride has its own
 launch counter.
 """
@@ -30,20 +34,20 @@ import torch
 
 from . import build
 from .build import LaunchCount, check, load_library
-from ..dcn import _bilinear_weights, _corners
+from ..dcn import _bilinear_weights, _corners, clip_offset_grad, offset_grad_terms
 
 launch_count = LaunchCount("deform_conv")        # K5, stride 1
 s2_launch_count = LaunchCount("deform_conv_s2")  # K5b, stride 2
-patches_launch_count = LaunchCount("deform_patches_doffsets")        # K6
-patches_s2_launch_count = LaunchCount("deform_patches_doffsets_s2")  # K6b
+wgrad_launch_count = LaunchCount("deform_wgrad_doffsets")        # K6
+wgrad_s2_launch_count = LaunchCount("deform_wgrad_doffsets_s2")  # K6b
 col2im_launch_count = LaunchCount("deform_col2im")                   # K7
 col2im_s2_launch_count = LaunchCount("deform_col2im_s2")             # K7b
 
 _DTYPES = (torch.float32, torch.bfloat16)
 TILE_K = 64      # the forward walks Cin in chunks of TILE_K (one 128-byte bf16 row)
 F32_TILE_N = 64  # the f32 forward's output-channel tile
-VEC = 4          # the backward walks channels in vectors of VEC
-MAX_X_ELEMENTS = 2 ** 31 - 1  # the bf16 forward keeps corner offsets in 32 bits
+VEC = 4          # K7 walks channels in vectors of VEC
+MAX_X_ELEMENTS = 2 ** 31 - 1  # the bf16 K5 and K6 keep corner offsets in 32 bits
 
 
 def bf16_tile_n(cout: int) -> int | None:
@@ -189,28 +193,57 @@ def _check_dpatch(what: str, dpatch: torch.Tensor, b: int, ho: int, wo: int, c: 
         raise ValueError(f"{what}: dpatch must be contiguous, 16-byte aligned")
 
 
-def deform_patches_doffsets_cuda(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor,
-                                 *, stride: int = 1, dilation: int = 1,
-                                 radius: float | None = None) -> tuple:
-    """K6 (stride 1) / K6b (stride 2): x (B, H, W, C) contiguous, f32 or
-    bf16; offsets (B, Ho, Wo, 18) f32; dpatch (B, Ho, Wo, 9C) in x's dtype ->
-    (patches (B, Ho, Wo, 9C) in x's dtype, doffsets (B, Ho, Wo, 18) f32)."""
-    what = "deform_patches_doffsets_cuda"
+def deform_wgrad_doffsets_cuda(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor,
+                               g: torch.Tensor, *, stride: int = 1, dilation: int = 1,
+                               radius: float | None = None) -> tuple:
+    """K6 (stride 1) / K6b (stride 2), the fused weight gradient: x (B, H, W,
+    C) contiguous, f32 or bf16, C a multiple of 64; offsets (B, Ho, Wo, 18)
+    f32; dpatch (B, Ho, Wo, 9C) and g (B * Ho * Wo, Cout) in x's dtype, Cout
+    128 or a multiple of 256 (bf16), a multiple of 64 (f32) -> (dW (9C, Cout)
+    f32, doffsets (B, Ho, Wo, 18) f32). The slices of M and the scratch
+    follow what the built kernel reports (``wgrad_layout_cuda``)."""
+    what = "deform_wgrad_doffsets_cuda"
     if x.dtype not in _DTYPES or dpatch.dtype != x.dtype:
         raise TypeError(f"{what}: x {x.dtype} and dpatch {dpatch.dtype} must be one dtype of "
                         f"{_DTYPES}")
+    if g.dtype != x.dtype:
+        raise TypeError(f"{what}: g {g.dtype} must have x's dtype {x.dtype}")
     b, h, w, c, ho, wo = _check_geometry(what, x.shape, offsets, stride, dilation)
     _check_dpatch(what, dpatch, b, ho, wo, c)
+    if c % TILE_K:
+        raise ValueError(f"{what}: C={c} must be a multiple of {TILE_K}")
+    m = b * ho * wo
+    if g.dim() != 2 or g.shape[0] != m:
+        raise ValueError(f"{what}: g {tuple(g.shape)}, expected (B*Ho*Wo, Cout) = ({m}, Cout)")
+    cout = g.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    if not (bf16_tile_n(cout) is not None if bf16 else cout > 0 and cout % F32_TILE_N == 0):
+        raise ValueError(f"{what}: Cout={cout}; " + ("128 or a multiple of 256 (bf16)" if bf16
+                                                     else f"a multiple of {F32_TILE_N} (f32)"))
+    if bf16 and x.numel() > MAX_X_ELEMENTS:
+        raise ValueError(f"{what}: x has {x.numel()} elements; the bf16 kernel takes at most "
+                         f"{MAX_X_ELEMENTS}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(f"{what}: g must be contiguous, 16-byte aligned")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous NHWC, 16-byte aligned")
-    dev = _check_device(what, x, offsets, dpatch)
-    patches = torch.empty_like(dpatch)
-    doff = torch.empty((b, ho, wo, 18), dtype=torch.float32, device=dev)
-    _launch("mxdet_deform_patches_doffsets", dev, x.data_ptr(), offsets.data_ptr(),
-            dpatch.data_ptr(), patches.data_ptr(), doff.data_ptr(), b, h, w, c, ho, wo, stride,
-            dilation, _radius(radius), int(x.dtype == torch.bfloat16))
-    (patches_launch_count if stride == 1 else patches_s2_launch_count).add()
-    return patches, doff
+    dev = _check_device(what, x, offsets, dpatch, g)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = wgrad_layout_cuda(c, cout, m, sms, bf16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw = torch.empty((9 * c, cout), **f32)
+    doff = torch.empty((b, ho, wo, 18), **f32)
+    part = torch.empty((lay["slices"], 9 * c, cout), **f32) if lay["slices"] > 1 else None
+    doff_ws = torch.empty((c // TILE_K, m, 18), **f32)
+    gtiles = (torch.empty((lay["chunks"] * lay["chunk"], cout), dtype=x.dtype, device=dev)
+              if bf16 else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _launch("mxdet_deform_wgrad_doffsets", dev, x.data_ptr(), offsets.data_ptr(),
+            dpatch.data_ptr(), g.data_ptr(), ptr(gtiles), ptr(part), dw.data_ptr(),
+            doff_ws.data_ptr(), doff.data_ptr(), b, h, w, c, ho, wo, cout, stride, dilation,
+            _radius(radius), sms, int(bf16))
+    (wgrad_launch_count if stride == 1 else wgrad_s2_launch_count).add()
+    return dw, doff
 
 
 def deform_col2im_cuda(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
@@ -317,3 +350,131 @@ def col2im_window_split(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape, *,
         inside.index_add_(0, flat, (dp * (wt * in_win)[..., None]).reshape(-1, c))
         spilled.index_add_(0, flat, (dp * (wt * ~in_win)[..., None]).reshape(-1, c))
     return inside.reshape(b, h, w, c), spilled.reshape(b, h, w, c), n_spilled
+
+
+# ---------------------------------------------------------------- K6's partition
+# As for K7, the kernel's constants live in its source alone; the plain model
+# reads them from there (``wgrad_config``) and is held, on the card, against
+# what the built kernel reports (``mxdet_deform_wgrad_layout``).
+WGRAD_SOURCE = "deform_conv_bwd.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_constants(csrc_dir: str) -> dict:
+    with open(os.path.join(csrc_dir, WGRAD_SOURCE)) as f:
+        text = f.read()
+    found = {key: re.search(rf"constexpr int {name} = (\d+);", text) for key, name in (
+        ("rows", "kWgRows"), ("chunk", "kWgPix"), ("min_chunks", "kWgMinChunks"),
+        ("max_slices", "kWgMaxSlices"))}
+    f32_tile = re.search(r"namespace wgf32 \{\s*constexpr int kBN = (\d+);", text)
+    if f32_tile is None or any(v is None for v in found.values()):
+        raise RuntimeError(f"{WGRAD_SOURCE}: kWgRows, kWgPix, kWgMinChunks, kWgMaxSlices or "
+                           "wgf32::kBN not found")
+    return {**{k: int(v.group(1)) for k, v in found.items()}, "f32_tile_n": int(f32_tile.group(1))}
+
+
+def wgrad_slices(tiles: int, chunks: int, sms: int, min_chunks: int, max_slices: int) -> int:
+    """The kernel's slices of M (``wgrad_slices`` in its source): of S = 1 ..
+    min(max_slices, chunks // min_chunks), the one with the least
+    ceil(tiles * S / sms) / S (the grid's waves of one block an SM per
+    slice of the work), the fewest among equals."""
+    most = max(1, min(max_slices, chunks // min_chunks))
+    best, best_waves = 1, -(-tiles // sms)
+    for s in range(2, most + 1):
+        waves = -(-tiles * s // sms)
+        if waves * best < best_waves * s:
+            best, best_waves = s, waves
+    return best
+
+
+def wgrad_config(c: int, cout: int, m: int, *, sms: int = 132, bf16: bool = True,
+                 csrc_dir: str | None = None) -> dict:
+    """K6's partition of a layer with C input and Cout output channels and
+    M output pixels, from the kernel source's constants (``csrc_dir``, the
+    package's by default): ``rows`` (dW rows a block: one tap's ``rows``
+    channels), ``tile_n`` (output channels a block), ``chunk`` (pixels a
+    step of its walk over M), ``chunks`` (of M, the last one ragged) and
+    ``slices`` (of the chunks, one a block, for ``sms`` SMs)."""
+    const = _wgrad_constants(csrc_dir or build.CSRC_DIR)
+    tile_n = bf16_tile_n(cout) if bf16 else const["f32_tile_n"]
+    chunks = -(-m // const["chunk"])
+    tiles = 9 * c // const["rows"] * (cout // tile_n)
+    return {"rows": const["rows"], "tile_n": tile_n, "chunk": const["chunk"], "chunks": chunks,
+            "slices": wgrad_slices(tiles, max(chunks, 1), sms, const["min_chunks"],
+                                   const["max_slices"])}
+
+
+def wgrad_layout_cuda(c: int, cout: int, m: int, sms: int, is_bf16: bool) -> dict:
+    """What the built kernel decides for this shape, in ``wgrad_config``'s
+    keys plus ``smem`` (dynamic shared memory a block, bytes; 0 for f32).
+    Builds the library on first use; launches nothing."""
+    out = (ctypes.c_int * 6)()
+    check(load_library().mxdet_deform_wgrad_layout(c, cout, m, sms, int(is_bf16), out),
+          "mxdet_deform_wgrad_layout")
+    rows, tile_n, chunk, slices, chunks, smem = out
+    return {"rows": rows, "tile_n": tile_n, "chunk": chunk, "chunks": chunks, "slices": slices,
+            "smem": smem}
+
+
+def wgmma_g_tiles(g: torch.Tensor, tile_n: int, chunk: int) -> torch.Tensor:
+    """The bf16 kernel's layout of g (M, Cout), its product's B operand read
+    MN-major: for each column tile j and chunk kc of ``chunk`` pixels
+    (``wgrad_config``'s), the tile_n / 64 blocks of (pixel k, 64 output
+    channels) in the 128-byte swizzle. Shape (Cout / tile_n, chunks, tile_n /
+    64, chunk, 64); element (j, kc, a, k, 8 * s + e) is g[chunk * kc + k,
+    tile_n * j + 64 * a + 8 * (s ^ (k % 8)) + e], zero for pixels past M.
+    Plain version of the pass ``g_tiles_kernel`` that the entry point runs
+    before the kernel."""
+    m, cout = g.shape
+    chunks = -(-m // chunk)
+    padded = torch.zeros((chunks * chunk, cout), dtype=g.dtype, device=g.device)
+    padded[:m] = g
+    t = padded.reshape(chunks, chunk, cout // tile_n, tile_n // 64, 8, 8)
+    t = t.permute(2, 0, 3, 1, 4, 5)  # (j, kc, a, k, 16-byte group, e)
+    k = torch.arange(chunk, device=g.device)
+    group = torch.arange(8, device=g.device)[None, :] ^ (k[:, None] % 8)
+    return t[:, :, :, k[:, None], group].reshape(cout // tile_n, chunks, tile_n // 64, chunk,
+                                                 64).contiguous()
+
+
+def wgrad_split(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor, g: torch.Tensor,
+                *, stride: int = 1, dilation: int = 1, radius: float | None = None,
+                sms: int = 132, slices: int | None = None) -> tuple:
+    """Plain model of K6's partition of ``ops/dcn.py::deform_wgrad_doffsets``:
+
+    - dW: M is cut into chunks of ``chunk`` pixels, the last one ragged,
+      and the chunks go to ``slices`` slices (``wgrad_config``'s by
+      default), slice s taking chunks [s * chunks // S, (s + 1) * chunks //
+      S); for each slice, each tile of ``rows`` dW rows x ``tile_n`` columns
+      is the product of the slice's rounded patch values and g's rows in
+      f32; the slices' partials are summed in order.
+    - doffsets: each ``rows``-channel chunk of a tap sums its channels'
+      offset terms; the chunks' partials are summed in order, then clipped.
+
+    Returns (dW (9C, Cout) float32, doffsets (B, Ho, Wo, 18) float32)."""
+    b, h, w, c = x.shape
+    m, cout = g.shape
+    conf = wgrad_config(c, cout, m, sms=sms, bf16=x.dtype == torch.bfloat16)
+    n_slices = slices or conf["slices"]
+    rows, tile_n, chunk, chunks = conf["rows"], conf["tile_n"], conf["chunk"], conf["chunks"]
+    patches, terms_y, terms_x = offset_grad_terms(x, offsets, dpatch, stride=stride,
+                                                  dilation=dilation, radius=radius)
+    a = patches.to(x.dtype).float().reshape(m, 9 * c)
+    gf = g.float()
+    dw = None
+    for s in range(n_slices):
+        lo = s * chunks // n_slices * chunk
+        hi = min((s + 1) * chunks // n_slices * chunk, m)
+        part = torch.empty((9 * c, cout), dtype=torch.float32, device=g.device)
+        for r0 in range(0, 9 * c, rows):
+            for n0 in range(0, cout, tile_n):
+                part[r0:r0 + rows, n0:n0 + tile_n] = (a[lo:hi, r0:r0 + rows].t()
+                                                      @ gf[lo:hi, n0:n0 + tile_n])
+        dw = part if dw is None else dw + part
+    doff = None
+    for k in range(c // rows):
+        chans = slice(k * rows, (k + 1) * rows)
+        part = torch.stack([terms_y[..., chans].sum(-1), terms_x[..., chans].sum(-1)], -1)
+        doff = part if doff is None else doff + part
+    doff = clip_offset_grad(doff, offsets, radius)
+    return dw, doff.reshape(b, offsets.shape[1], offsets.shape[2], 18)

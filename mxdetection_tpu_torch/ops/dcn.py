@@ -14,14 +14,15 @@ kernels through ``ops/cuda/deform_conv.py``, any other device raises.
   (x, offsets, weight), so nothing 9x the activation size is kept between
   forward and backward:
   1. dpatch = g @ W^T (``torch.matmul``, x's dtype, f32 accumulation);
-  2. (patches, doffsets) = ``deform_patches_doffsets`` (K6/K6b on the card:
-     the patches rebuilt and the offset gradient reduced over channels in
-     one pass);
-  3. dW = patches^T @ g (``torch.matmul``, f32 accumulation);
-  4. dx = ``deform_col2im`` (K7/K7b on the card: dpatch scattered back to
+  2. (dW, doffsets) = ``deform_wgrad_doffsets``: the patches rebuilt, dW =
+     patches^T @ g with f32 accumulation, and the offset gradient reduced
+     over channels. On the card one fused kernel (K6/K6b) does all three:
+     the patch values never leave shared memory. The plain version builds
+     the patches (``deform_patches_doffsets``) and multiplies them.
+  3. dx = ``deform_col2im`` (K7/K7b on the card: dpatch scattered back to
      the input with the bilinear weights).
-  Steps 1 and 3 are the two products the JAX package also leaves to XLA
-  outside its kernels.
+  Step 1 and the product of step 2 are the two products the JAX package
+  leaves to XLA outside its kernels.
 
 The JAX package's environment switch between its gather, shift and Pallas
 paths, and its shift-select formulation, are TPU measures and are not
@@ -123,19 +124,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, 
     return out.to(x.dtype)
 
 
-def deform_patches_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor, *,
-                            stride: int = 1, dilation: int = 1,
-                            radius: float | None = None) -> tuple:
-    """The plain version of K6/K6b: x (B, H, W, C), offsets (B, Ho, Wo, 18),
-    dpatch (B, Ho, Wo, 9C), the gradient of the patch rows ->
-
-    - patches (B, Ho, Wo, 9C) in x's dtype, the forward's rounded patch rows;
-    - doffsets (B, Ho, Wo, 18) float32: per tap
-      doy = sum_c dpatch * ((1-lx)(v10-v00) + lx(v11-v01)) and
-      dox = sum_c dpatch * ((1-ly)(v01-v00) + ly(v11-v10)), with v the corner
-      values, zero outside the map; with ``radius``, zero where the offset
-      lies outside [-radius, radius] (the clip's gradient).
-    """
+def offset_grad_terms(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor, *,
+                      stride: int = 1, dilation: int = 1, radius: float | None = None) -> tuple:
+    """x (B, H, W, C), offsets (B, Ho, Wo, 18), dpatch (B, Ho, Wo, 9C) ->
+    the f32 patches (B, Ho, Wo, 3, 3, C) and, of the same shape, each
+    channel's terms dpatch * ((1-lx)(v10-v00) + lx(v11-v01)) of doy and
+    dpatch * ((1-ly)(v01-v00) + ly(v11-v10)) of dox, with v the corner
+    values, zero outside the map; the offset gradient before the clip is
+    their sum over channels."""
     k = 3
     b, h, w, c = x.shape
     ho, wo = offsets.shape[1], offsets.shape[2]
@@ -147,14 +143,40 @@ def deform_patches_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torc
     patches = v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
     dp = dpatch.float().reshape(b, ho, wo, k, k, c)
     ly, lx = ly[..., None], lx[..., None]
-    doy = (dp * ((1 - lx) * (v10 - v00) + lx * (v11 - v01))).sum(-1)
-    dox = (dp * ((1 - ly) * (v01 - v00) + ly * (v11 - v10))).sum(-1)
-    doff = torch.stack([doy, dox], -1)  # (B, Ho, Wo, k, k, 2)
-    if radius is not None:
-        off = offsets.float().reshape(doff.shape)
-        doff = doff * ((off >= -radius) & (off <= radius))
-    return (patches.to(x.dtype).reshape(b, ho, wo, k * k * c),
-            doff.reshape(b, ho, wo, 2 * k * k))
+    return (patches, dp * ((1 - lx) * (v10 - v00) + lx * (v11 - v01)),
+            dp * ((1 - ly) * (v01 - v00) + ly * (v11 - v10)))
+
+
+def clip_offset_grad(doff: torch.Tensor, offsets: torch.Tensor,
+                     radius: float | None) -> torch.Tensor:
+    """The clip's gradient: ``doff`` zeroed where ``radius`` clamps the
+    offset (outside [-radius, radius]); unchanged without a radius."""
+    if radius is None:
+        return doff
+    off = offsets.float().reshape(doff.shape)
+    return doff * ((off >= -radius) & (off <= radius))
+
+
+def deform_patches_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor, *,
+                            stride: int = 1, dilation: int = 1,
+                            radius: float | None = None) -> tuple:
+    """x (B, H, W, C), offsets (B, Ho, Wo, 18), dpatch (B, Ho, Wo, 9C), the
+    gradient of the patch rows ->
+
+    - patches (B, Ho, Wo, 9C) in x's dtype, the forward's rounded patch rows;
+    - doffsets (B, Ho, Wo, 18) float32: per tap
+      doy = sum_c dpatch * ((1-lx)(v10-v00) + lx(v11-v01)) and
+      dox = sum_c dpatch * ((1-ly)(v01-v00) + ly(v11-v10)), with v the corner
+      values, zero outside the map; with ``radius``, zero where the offset
+      lies outside [-radius, radius] (the clip's gradient).
+
+    What the TPU kernel K6 computed; ``deform_wgrad_doffsets`` builds on it.
+    """
+    b, ho, wo = offsets.shape[:3]
+    patches, terms_y, terms_x = offset_grad_terms(x, offsets, dpatch, stride=stride,
+                                                  dilation=dilation, radius=radius)
+    doff = clip_offset_grad(torch.stack([terms_y.sum(-1), terms_x.sum(-1)], -1), offsets, radius)
+    return patches.to(x.dtype).reshape(b, ho, wo, -1), doff.reshape(b, ho, wo, 18)
 
 
 def deform_col2im(dpatch: torch.Tensor, offsets: torch.Tensor, x_shape: tuple, *,
@@ -183,6 +205,21 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.ops.aten.mm.dtype(a, b, torch.float32)
 
 
+def deform_wgrad_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.Tensor,
+                          g: torch.Tensor, *, stride: int = 1, dilation: int = 1,
+                          radius: float | None = None) -> tuple:
+    """The plain version of K6/K6b, the fused weight gradient: x (B, H, W,
+    C), offsets (B, Ho, Wo, 18), dpatch (B, Ho, Wo, 9C), g (B * Ho * Wo,
+    Cout) in x's dtype, the output's gradient -> (dW (9C, Cout) float32 =
+    patches^T @ g with the patches rounded to x's dtype and f32
+    accumulation, doffsets (B, Ho, Wo, 18) float32 as
+    ``deform_patches_doffsets``)."""
+    patches, doff = deform_patches_doffsets(x, offsets, dpatch, stride=stride, dilation=dilation,
+                                            radius=radius)
+    n = g.shape[0]
+    return _matmul_f32(patches.reshape(n, -1).t(), g), doff
+
+
 class DeformConvFunction(torch.autograd.Function):
     """(x, offsets, weight, stride, dilation, radius) -> the deformable conv,
     with the backward of the module docstring. Saves only (x, offsets,
@@ -204,19 +241,17 @@ class DeformConvFunction(torch.autograd.Function):
         x, offsets, weight = ctx.saved_tensors
         k, cin, cout = weight.shape[0], weight.shape[2], weight.shape[3]
         b, ho, wo = offsets.shape[:3]
-        n = b * ho * wo
-        g2 = g.to(x.dtype).reshape(n, cout).contiguous()
+        g2 = g.to(x.dtype).reshape(b * ho * wo, cout).contiguous()
         wmat = weight.to(x.dtype).reshape(k * k * cin, cout)
         dpatch = torch.matmul(g2, wmat.t()).reshape(b, ho, wo, k * k * cin)
         if x.device.type == "cuda":
-            from .cuda.deform_conv import deform_col2im_cuda, deform_patches_doffsets_cuda
+            from .cuda.deform_conv import deform_col2im_cuda, deform_wgrad_doffsets_cuda
 
-            patches, doff = deform_patches_doffsets_cuda(x, offsets, dpatch, **ctx.conf)
+            dw, doff = deform_wgrad_doffsets_cuda(x, offsets, dpatch, g2, **ctx.conf)
             dx = deform_col2im_cuda(dpatch, offsets, x.shape, **ctx.conf)
         else:
-            patches, doff = deform_patches_doffsets(x, offsets, dpatch, **ctx.conf)
+            dw, doff = deform_wgrad_doffsets(x, offsets, dpatch, g2, **ctx.conf)
             dx = deform_col2im(dpatch, offsets, x.shape, **ctx.conf)
-        dw = _matmul_f32(patches.reshape(n, k * k * cin).t(), g2)
         return (dx.to(x.dtype), doff.to(offsets.dtype),
                 dw.reshape(k, k, cin, cout).to(weight.dtype), None, None, None)
 

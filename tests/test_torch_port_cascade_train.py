@@ -3,10 +3,12 @@ conv's backward (``ops/dcn.py::DeformConvFunction``) and the cascade's
 training path of ``mxdetection_tpu_torch`` against the JAX package on the
 CPU, in float32, from numpy-seeded inputs.
 
-On the CPU the Function runs its plain versions (``deform_patches_doffsets``
-and ``deform_col2im`` beside the two products); the CUDA kernels (K6/K6b,
-K7/K7b, ``csrc/deform_conv_bwd.cu``) cannot run here and are held against
-those plain versions on the card by ``chip_smoke.py``. Pallas kernels run in
+On the CPU the Function runs its plain versions (``deform_wgrad_doffsets``,
+built on ``deform_patches_doffsets`` and the dW product, and
+``deform_col2im``, beside dpatch = g W^T); the CUDA kernels (K6/K6b, the
+fused weight gradient, and K7/K7b, ``csrc/deform_conv_bwd.cu``) cannot run
+here and are held against those plain versions on the card by
+``chip_smoke.py``. Pallas kernels run in
 interpret mode, as the JAX package's own tests run them. The samplers'
 random draws are the JAX package's (``jax_draws``).
 """
@@ -91,7 +93,7 @@ def test_deform_conv_backward_matches_jax_grad(stride, dilation):
 
 @pytest.mark.parametrize("stride,radius", [(1, None), (2, None), (1, 3), (2, 3)])
 def test_deform_conv_function_matches_autograd_of_plain(stride, radius):
-    """The Function's backward (two products, ``deform_patches_doffsets``
+    """The Function's backward (dpatch = g W^T, ``deform_wgrad_doffsets``
     and ``deform_col2im``) against torch autograd of the plain forward
     ``deform_conv2d``, within 1e-5 of the largest gradient; with
     ``radius=3`` the clip's gradient zeroes the offsets beyond +-3."""
@@ -172,43 +174,61 @@ def test_patches_doffsets_and_col2im_plain_versions(stride):
 
 
 def _bwd_call(what, **over):
-    kw = dict(x=torch.zeros(1, 6, 8, 16), offsets=torch.zeros(1, 6, 8, 18),
-              dpatch=torch.zeros(1, 6, 8, 144), stride=1)
+    """A call of K6's wrapper (``deform_wgrad_doffsets_cuda``; the cases
+    named ``patches_*`` hold the checks the unfused patches wrapper made) or
+    of K7's, on CPU tensors that pass every check but ``over``'s."""
+    kw = dict(x=torch.zeros(1, 6, 8, 64), offsets=torch.zeros(1, 6, 8, 18),
+              dpatch=torch.zeros(1, 6, 8, 576), g=torch.zeros(48, 128), stride=1)
     kw.update(over)
     if what == "patches":
-        return lambda: cuda_dcn.deform_patches_doffsets_cuda(**kw)
+        return lambda: cuda_dcn.deform_wgrad_doffsets_cuda(**kw)
     return lambda: cuda_dcn.deform_col2im_cuda(kw["dpatch"], kw["offsets"], kw["x"].shape,
                                                stride=kw["stride"])
 
 
+def _bf16(**kw):
+    return {k: v.bfloat16() for k, v in kw.items()}
+
+
 BWD_WRAPPER_CASES = {
     "patches_dtype": (TypeError, "dtype", _bwd_call("patches", x=torch.zeros(
-        1, 6, 8, 16, dtype=torch.float16))),
+        1, 6, 8, 64, dtype=torch.float16))),
     "patches_mixed": (TypeError, "dtype", _bwd_call("patches", dpatch=torch.zeros(
-        1, 6, 8, 144, dtype=torch.bfloat16))),
+        1, 6, 8, 576, dtype=torch.bfloat16))),
     "patches_offsets_dtype": (TypeError, "offsets", _bwd_call("patches", offsets=torch.zeros(
         1, 6, 8, 18, dtype=torch.float64))),
     "patches_offsets_shape": (ValueError, "offsets", _bwd_call("patches", stride=2)),
     "patches_dpatch_shape": (ValueError, "dpatch", _bwd_call("patches", dpatch=torch.zeros(
-        1, 6, 8, 128))),
+        1, 6, 8, 512))),
     "patches_channels": (ValueError, "C=6", _bwd_call("patches", x=torch.zeros(1, 6, 8, 6),
                                                       dpatch=torch.zeros(1, 6, 8, 54))),
     "patches_layout": (ValueError, "contiguous", _bwd_call(
-        "patches", x=torch.zeros(1, 8, 6, 16).transpose(1, 2))),
+        "patches", x=torch.zeros(1, 8, 6, 64).transpose(1, 2))),
     "patches_cpu": (ValueError, "CUDA", _bwd_call("patches")),
+    "wgrad_channels": (ValueError, "C=32 must be a multiple of 64", _bwd_call(
+        "patches", x=torch.zeros(1, 6, 8, 32), dpatch=torch.zeros(1, 6, 8, 288))),
+    "wgrad_g_dtype": (TypeError, "g torch.bfloat16", _bwd_call(
+        "patches", g=torch.zeros(48, 128, dtype=torch.bfloat16))),
+    "wgrad_g_shape": (ValueError, r"g \(47, 128\)", _bwd_call("patches", g=torch.zeros(47, 128))),
+    "wgrad_g_layout": (ValueError, "g must be contiguous", _bwd_call(
+        "patches", g=torch.zeros(128, 48).t())),
+    "wgrad_cout_f32": (ValueError, "Cout=96", _bwd_call("patches", g=torch.zeros(48, 96))),
+    "wgrad_cout_bf16": (ValueError, "Cout=192", _bwd_call("patches", **_bf16(
+        x=torch.zeros(1, 6, 8, 64), dpatch=torch.zeros(1, 6, 8, 576), g=torch.zeros(48, 192)))),
     "col2im_stride": (ValueError, "stride 3", _bwd_call("col2im", stride=3)),
     "col2im_dpatch_dtype": (TypeError, "dpatch", _bwd_call("col2im", dpatch=torch.zeros(
-        1, 6, 8, 144, dtype=torch.int32))),
+        1, 6, 8, 576, dtype=torch.int32))),
     "col2im_layout": (ValueError, "contiguous", _bwd_call(
-        "col2im", dpatch=torch.zeros(1, 6, 144, 8).transpose(2, 3))),
+        "col2im", dpatch=torch.zeros(1, 6, 576, 8).transpose(2, 3))),
     "col2im_cpu": (ValueError, "CUDA", _bwd_call("col2im")),
 }
 
 
 @pytest.mark.parametrize("case", sorted(BWD_WRAPPER_CASES))
 def test_deform_conv_bwd_cuda_wrappers_validate_before_launch(case, monkeypatch):
-    """K6's and K7's wrappers refuse what their kernels do not take, and any
-    tensor not on a CUDA device, before building or launching anything."""
+    """K6's (the fused weight gradient's) and K7's wrappers refuse what
+    their kernels do not take, and any tensor not on a CUDA device, before
+    building or launching anything."""
     def no_build():
         raise AssertionError("the wrapper reached the kernel library")
 

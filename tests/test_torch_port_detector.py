@@ -289,7 +289,7 @@ def test_port_runs_without_jax():
         assert "loss_rcnn_cls2" in m
         counts = (roi_align.launch_count, roi_align.bwd_launch_count, nms.launch_count,
                   iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count,
-                  deform_conv.patches_launch_count, deform_conv.patches_s2_launch_count,
+                  deform_conv.wgrad_launch_count, deform_conv.wgrad_s2_launch_count,
                   deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count)
         assert all(c.n == 0 for c in counts)
         assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu")
