@@ -14,10 +14,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    boxes, IoU 0.7);
 4. holds the IoU kernel (K4) against its plain version at the RPN
    assigner's shapes (8 x 279,279 anchors x 100 gt): max error must be 0;
-5. holds the RoIAlign backward (K3) and its f32 -> bf16 convert (K3b)
-   against torch autograd of K1's plain version at training shapes (8 x 512
-   rois over P2-P5 of 832x1344, C 256): f32 within 1e-5 of the largest
-   gradient, bf16 within one bf16 rounding of the f32 result;
+5. holds the RoIAlign backward (K3: a block owns an output tile and sums
+   the terms of the rois that touch it; K3b, the bf16 convert, is its
+   epilogue) against torch autograd of K1's plain version at training
+   shapes (8 x 512 rois over P2-P5 of 832x1344, C 256): f32 within 1e-5 of
+   the largest gradient, two runs (and a run from the same g in bf16)
+   bit-identical, the bf16 gradient equal to the f32 one rounded; against
+   its plain model ``roi_align_bwd_tiles`` bit for bit on ragged maps and
+   channel counts with rois of every awkward kind; logs ptxas's lines
+   (failing on spills), the tile and chunk of the built kernel (failing
+   where they are not the model's) and the (roi, tile) pairs and longest
+   roi list; after step 9, the same checks and a time on the rois of the
+   training path's first step (with a seeded upstream gradient);
 6. drives the inference path at full width: Faster R-CNN R50-FPN COCO
    inference in bf16 (seeded random weights), ``batch_transform`` of 8
    uint8 480x640 canvases to 832x1344, ``forward_test`` and
@@ -46,7 +54,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    same config (f32 master weights, bf16 compute) on 8 uint8 480x640
    canvases with about 7 gt boxes each; 2 warm-up steps and 10 timed steps
    (median ms per step, images/s, peak memory). Loss and grad norm must be
-   finite and the launch counts of K1, K2, K3, K3b and K4 must rise; a
+   finite and the launch counts of K1, K2, K3 (bf16 too: K3b) and K4 must rise; a
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
@@ -90,6 +98,8 @@ module boundaries) and traces each with ``torch.profiler``: kernel time by
 name, the device's idle share, and Chrome traces written to
 ``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz``,
 ``DIR/train_step_trace.json.gz`` and ``DIR/cascade_train_trace.json.gz``.
+``--k3-rois FILE`` saves phase 5's rois and the training step's to FILE,
+for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE``.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work on this run's inputs: the largest of the bytes the function must
@@ -418,16 +428,87 @@ def phase_iou(device) -> dict:
 # phase 5: K3 + K3b
 
 
+def k3_build_facts() -> None:
+    """Log ptxas's lines of K3 (``roi_align_bwd_kernel``, one instantiation
+    a pair of g and output dtypes), failing on spills, and the partition the
+    built kernel reports (``roi_align_bwd_layout_cuda``), failing where it is
+    not the plain model's (``roi_align_bwd_config``, read from the source)."""
+    from mxdetection_tpu_torch.ops.cuda.roi_align import (roi_align_bwd_config,
+                                                          roi_align_bwd_layout_cuda)
+
+    ptxas_facts("roi_align_bwd_kernel", "K3")
+    built, model = roi_align_bwd_layout_cuda(), roi_align_bwd_config()
+    same = built == model
+    log(f"K3 partition: built kernel {built}, plain model {model}: "
+        f"{'same' if same else 'DIFFERENT'}")
+    if not same:
+        fail("K3: the built kernel's tile or chunk is not the plain model's")
+
+
+def k3_pairs(shapes, strides, rois, levels, valid) -> tuple[int, int]:
+    """((roi, tile) pairs, longest roi list of a tile) of K3's partition."""
+    from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
+
+    taps = roi_cuda.roi_sample_taps(rois, levels, shapes, strides)
+    return roi_cuda.roi_tile_pairs(roi_cuda.roi_footprints(taps, valid), levels, shapes)
+
+
+def k3_model_check(device) -> None:
+    """K3 against its plain model (``roi_align_bwd_tiles``), bit for bit, on
+    ragged maps (neither side a multiple of the tile) with rois of every
+    kind the CPU tests name: overhanging and outside the map, narrower than
+    a cell, past 40:1, at the last row and column, and a cluster on one
+    tile; C = 131 (a ragged last chunk, scalar loads) and 64 (vector
+    loads), S = 2 and 3 (g / 9 rounded through f64), g in f32 and bf16."""
+    import torch
+
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda, roi_align_bwd_tiles
+
+    gen = torch.Generator().manual_seed(16)
+    shapes, strides = [(19, 13), (10, 7)], (4, 8)
+    cx = torch.cat([torch.rand(20, generator=gen) * 70 - 10, torch.full((12,), 30.0)])
+    cy = torch.cat([torch.rand(20, generator=gen) * 100 - 10, torch.full((12,), 40.0)])
+    side = torch.exp(torch.rand(32, generator=gen) * 4.0 + 0.5)
+    aspect = torch.exp(torch.randn(32, generator=gen) * 1.5)
+    w, h = side * aspect.sqrt(), side / aspect.sqrt()
+    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    rois[20:] += torch.randn((12, 4), generator=gen)  # the cluster
+    rois[0] = torch.tensor([1.0, 2.0, 1.5, 2.2])       # narrower than a cell
+    rois[1] = torch.tensor([0.0, 30.0, 52.0, 31.0])    # 52:1
+    rois[2] = torch.tensor([40.0, 60.0, 60.0, 90.0])   # at the last row and column
+    rois[3] = torch.tensor([-40.0, -30.0, -8.0, -6.0])  # outside the map
+    rois = torch.stack([rois, rois.flip(0)]).to(device)
+    valid = (torch.rand((2, 32), generator=gen) > 0.1).to(device)
+    levels = (torch.rand((2, 32), generator=gen) > 0.6).int().to(device)
+    for c, s in ((131, 2), (64, 2), (64, 3)):
+        g32 = torch.randn((2, 32, 7, 7, c), generator=gen).to(device)
+        for g in (g32, g32.bfloat16()):
+            model, pairs, longest = roi_align_bwd_tiles(g, shapes, rois, strides, levels,
+                                                        sampling_ratio=s, roi_valid=valid)
+            got = roi_align_bwd_cuda(g, shapes, rois, strides, levels, sampling_ratio=s,
+                                     roi_valid=valid)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, m) for a, m in zip(got, model))
+            log(f"K3 vs its plain model, C={c}, S={s}, g {g.dtype}, maps {shapes}: "
+                f"{'bit-identical' if same else 'DIFFERENT'} ({pairs} (roi, tile) pairs, "
+                f"longest list {longest})")
+            if not same:
+                fail(f"K3 differs from roi_align_bwd_tiles at C={c}, S={s}, g {g.dtype}")
+
+
 def phase_roi_align_bwd(device) -> dict:
-    """K3 (+ K3b) at training shapes against torch autograd of K1's plain
-    version, on the same rois, levels and upstream gradient."""
+    """K3 (K3b as its bf16 epilogue) at training shapes against torch
+    autograd of K1's plain version, on the same rois, levels and upstream
+    gradient; against its plain model; two runs bit for bit."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
-    from mxdetection_tpu_torch.ops.cuda.roi_align import f32_to_bf16_cuda, roi_align_bwd_cuda
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    k3_build_facts()
+    k3_model_check(device)
     gen = torch.Generator().manual_seed(6)
     b, r, strides = MAIN_BATCH, TRAIN_ROIS, (4, 8, 16, 32)
     rois, valid = main_path_rois(b, r, gen, device)
@@ -436,34 +517,44 @@ def phase_roi_align_bwd(device) -> dict:
     shapes = [tuple(f.shape[1:3]) for f in feats]
     g16 = torch.randn((b, r, 7, 7, 256), generator=gen).to(device=device, dtype=torch.bfloat16)
     g32 = g16.float()
+    result = {"rois": {"rois": rois.cpu(), "levels": levels.cpu(), "valid": valid.cpu()},
+              "shapes": shapes, "strides": strides}
+    result["pairs"], result["longest_list"] = k3_pairs(shapes, strides, rois, levels, valid)
+    log(f"K3 synthetic rois: {result['pairs']} (roi, tile) pairs, longest list "
+        f"{result['longest_list']}")
 
     leaves = [f.requires_grad_() for f in feats]
     out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, roi_valid=valid)
     plain = lambda: torch.autograd.grad(out, leaves, g32, retain_graph=True)
-    ref = torch.cat([x.flatten() for x in plain()])
-    scale = ref.abs().max().item()
-    result = {}
+    ref = plain()
+    scale = max(x.abs().max().item() for x in ref)
+    run = lambda g, dtype: roi_align_bwd_cuda(g, shapes, rois, strides, levels,  # noqa: E731
+                                              roi_valid=valid, out_dtype=dtype)
+    f32 = run(g32, torch.float32)
+    torch.cuda.synchronize()
+    max_abs = max((a - e).abs().max().item() for a, e in zip(f32, ref))
+    ok = max_abs <= 1e-5 * scale
+    again = all(torch.equal(a, x) for a, x in zip(f32, run(g32, torch.float32)))
+    from_bf16 = all(torch.equal(a, x) for a, x in zip(f32, run(g16, torch.float32)))
+    bf16 = run(g16, torch.bfloat16)
+    rounded = all(torch.equal(x, a.to(torch.bfloat16)) for x, a in zip(bf16, f32))
+    k3b_err = max((x.float() - a.to(torch.bfloat16).float()).abs().max().item()
+                  for x, a in zip(bf16, f32))
+    log(f"K3 roi_align_bwd f32: max_abs_err {max_abs:.3e} of max|ref| {scale:.3e} "
+        f"(max|err| <= 1e-5 max|ref|, the sums in another order: {'ok' if ok else 'FAILED'}); "
+        f"two runs bit-identical: {again}; from bf16 g (the same values) bit-identical: "
+        f"{from_bf16}; K3b: bf16 out equal to the f32 out .to(bfloat16): {rounded}")
+    if not ok:
+        fail("K3 disagrees with autograd of the plain RoIAlign in float32")
+    if not (again and from_bf16):
+        fail("K3: two runs on the same values differ")
+    if not rounded:
+        fail("K3b: the bf16 gradient is not the f32 gradient rounded to nearest even")
+    plain_ms = time_ms(plain, reps=3, warmup=1)
     for dtype, g in ((torch.float32, g32), (torch.bfloat16, g16)):
-        kernel = lambda: roi_align_bwd_cuda(g, shapes, rois, strides, levels, roi_valid=valid,
-                                            out_dtype=dtype)
-        got = torch.cat([x.float().flatten() for x in kernel()])
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        max_abs = err.max().item()
-        if dtype == torch.float32:
-            ok = max_abs <= 1e-5 * scale
-            rule = "max|err| <= 1e-5 max|ref| (atomics reorder the sums)"
-        else:  # one bf16 rounding of the f32 sum, which itself reorders
-            ok = bool((err <= 2.0 ** -8 * ref.abs() + 1e-5 * scale).all())
-            rule = "|err| <= 2^-8 |ref| + 1e-5 max|ref|"
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        log(f"K3 roi_align_bwd {dtype}: max_abs_err {max_abs:.3e} of max|ref| {scale:.3e} "
-            f"({rule}: {'ok' if ok else 'FAILED'}); kernel (zero + K3"
-            f"{' + K3b' if dtype == torch.bfloat16 else ''}) {ms:.4f} ms, autograd of plain "
+        ms = time_ms(lambda: run(g, dtype))
+        log(f"K3 roi_align_bwd {dtype} (g and gradients): {ms:.4f} ms, autograd of plain "
             f"{plain_ms:.4f} ms (B={b}, R={r}, C=256, P2-P5 of 832x1344)")
-        if not ok:
-            fail(f"K3 disagrees with autograd of the plain RoIAlign in {dtype}")
         result[str(dtype).replace("torch.", "")] = {"max_abs_err": max_abs, "ms": ms,
                                                    "plain_ms": plain_ms}
     n_valid = int(valid.sum())
@@ -472,22 +563,85 @@ def phase_roi_align_bwd(device) -> dict:
     k3_bytes = n_valid * 49 * 256 * 2 + pixels * 256 * 2 + b * r * (16 + 4 + 1)
     result["bound_ms"], result["bound_by"] = bound(k3_bytes, roi_flops(n_valid, 7, 2, 256))
 
-    acc = torch.randn(pixels * 256, generator=gen).to(device)
-    kernel = lambda: f32_to_bf16_cuda(acc)
-    library = lambda: acc.to(torch.bfloat16)
-    exact = torch.equal(kernel(), library())
-    max_abs = (kernel().float() - library().float()).abs().max().item()
-    k3b = {"max_abs_err": max_abs, "ms": time_ms(kernel), "library_ms": time_ms(library)}
-    k3b["plain_ms"] = k3b["library_ms"]  # the plain version is that one PyTorch call
-    k3b["bound_ms"], k3b["bound_by"] = bound(acc.numel() * 6, acc.numel())
-    log(f"K3b f32_to_bf16: {acc.numel()} values, identical to .to(bfloat16): {exact}; kernel "
-        f"{k3b['ms']:.4f} ms, .to(bfloat16) {k3b['library_ms']:.4f} ms, bound "
-        f"{k3b['bound_ms']:.4f} ms ({k3b['bound_by']}); K3 bound {result['bound_ms']:.4f} ms "
-        f"({result['bound_by']}) for {n_valid} valid rois")
-    if not exact:
-        fail("K3b differs from .to(torch.bfloat16)")
-    result["k3b"] = k3b
+    # K3b is the bf16 epilogue of the same kernel: it has no time of its own.
+    # Its entry carries the fused kernel's bf16 time and bound, and beside
+    # them what the separate convert it replaced costs at least: one
+    # .to(bfloat16) of the 190 M f32 values (its plain version and library call).
+    acc = torch.cat([a.flatten() for a in f32])
+    convert_ms = time_ms(lambda: acc.to(torch.bfloat16))
+    result["k3b"] = {"max_abs_err": k3b_err, "ms": result["bfloat16"]["ms"],
+                     "plain_ms": convert_ms, "library_ms": convert_ms,
+                     "bound_ms": result["bound_ms"], "bound_by": result["bound_by"]}
+    log(f"K3b (fused): {acc.numel()} values; .to(bfloat16) alone {convert_ms:.4f} ms; K3 "
+        f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}) for {n_valid} valid rois")
     return result
+
+
+class CaptureRoiBwd:
+    """While active, keeps a copy of the rois, levels and validity of the
+    first call of the RoIAlign backward's wrapper (the autograd Function
+    reads it from its module at each call), and the shape and dtype of its
+    upstream gradient: nothing large, so the step's peak memory is its own."""
+
+    def __init__(self):
+        from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
+
+        self.module, self.first = roi_cuda, None
+
+    def __enter__(self):
+        inner = self.orig = self.module.roi_align_bwd_cuda
+
+        def wrapped(grad_out, feature_shapes, rois, strides, levels, **kw):
+            if self.first is None:
+                self.first = {"g": (tuple(grad_out.shape), grad_out.dtype),
+                              "shapes": list(feature_shapes), "rois": rois.clone(),
+                              "strides": tuple(strides), "levels": levels.clone(),
+                              "roi_valid": kw["roi_valid"].clone()}
+            return inner(grad_out, feature_shapes, rois, strides, levels, **kw)
+
+        self.module.roi_align_bwd_cuda = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.roi_align_bwd_cuda = self.orig
+
+
+def phase_roi_align_bwd_train(device, cap: dict, k3: dict) -> None:
+    """K3 on the rois of one Faster R-CNN training step (captured from the
+    train path's first step) with a seeded upstream gradient of the step's
+    shape and dtype: f32 within 1e-5 of the largest value of autograd of the
+    plain version, bf16 equal to the f32 gradient rounded, the pairs and the
+    longest list, timed."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import roi_align as ra
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
+
+    shape, dtype = cap["g"]
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(17)).to(device, dtype)
+    shapes, strides = cap["shapes"], cap["strides"]
+    rois, levels, valid = cap["rois"], cap["levels"], cap["roi_valid"]
+    pairs, longest = k3_pairs(shapes, strides, rois, levels, valid)
+    leaves = [torch.zeros((g.shape[0], h, w, g.shape[-1]), device=device, requires_grad=True)
+              for h, w in shapes]
+    out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, roi_valid=valid)
+    ref = torch.autograd.grad(out, leaves, g.float())
+    run = lambda dtype: roi_align_bwd_cuda(g, shapes, rois, strides, levels,  # noqa: E731
+                                           roi_valid=valid, out_dtype=dtype)
+    f32 = run(torch.float32)
+    scale = max(x.abs().max().item() for x in ref)
+    max_abs = max((a - e).abs().max().item() for a, e in zip(f32, ref))
+    rounded = all(torch.equal(x, a.to(torch.bfloat16)) for x, a in zip(run(torch.bfloat16), f32))
+    ms = time_ms(lambda: run(torch.bfloat16))
+    log(f"K3 on one training step's rois ({int(valid.sum())} valid of {tuple(valid.shape)}, rois "
+        f"a level {torch.bincount(levels[valid].long(), minlength=len(shapes)).tolist()}, g "
+        f"{g.dtype}): {pairs} (roi, tile) pairs, longest list {longest}; f32 max_abs_err "
+        f"{max_abs:.3e} of max|ref| {scale:.3e}; bf16 = f32 rounded: {rounded}; bf16 {ms:.4f} ms")
+    if max_abs > 1e-5 * scale or not rounded:
+        fail("K3 on the training step's rois disagrees with autograd of the plain RoIAlign")
+    k3["train_step"] = {"ms": ms, "pairs": pairs, "longest_list": longest, "max_abs_err": max_abs,
+                        "rois": {"rois": rois.cpu(), "levels": levels.cpu(),
+                                 "valid": valid.cpu()}}
 
 
 # --------------------------------------------------------------------------
@@ -1364,7 +1518,8 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
     return launches
 
 
-def phase_train_path(device, card: str, counters, profile_dir: str | None) -> dict:
+def phase_train_path(device, card: str, counters, profile_dir: str | None,
+                     capture: CaptureRoiBwd) -> dict:
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -1378,8 +1533,9 @@ def phase_train_path(device, card: str, counters, profile_dir: str | None) -> di
     log(f"train path: {cfg.name}, f32 master weights, {cfg.backbone.dtype} compute, seeded "
         f"init in {time.perf_counter() - t0:.1f} s")
     batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
-    return drive_train(trainer, batch, counters, card, "train path", profile_dir,
-                       "train_step_trace.json.gz")
+    with capture:
+        return drive_train(trainer, batch, counters, card, "train path", profile_dir,
+                           "train_step_trace.json.gz")
 
 
 # --------------------------------------------------------------------------
@@ -1773,6 +1929,9 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="after the checks, split a batch into its stages and trace "
                              "it with torch.profiler into DIR")
+    parser.add_argument("--k3-rois", metavar="FILE", default=None,
+                        help="save the RoIAlign backward's two roi sets (phase 5's and one "
+                             "training step's) to FILE, for ops/cuda/k3_variants.py")
     args = parser.parse_args()
     try:
         import torch
@@ -1805,13 +1964,19 @@ def main() -> int:
     paths["cascade_inference"] = phase_cascade_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count], args.profile)
+    capture = CaptureRoiBwd()
     paths["train"] = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
-        roi_cuda.convert_launch_count, iou_cuda.launch_count], args.profile)
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count], args.profile, capture)
+    phase_roi_align_bwd_train(device, capture.first, k3)
+    if args.k3_rois:
+        torch.save({"shapes": k3["shapes"], "strides": k3["strides"], "sets": {
+            "synthetic": k3["rois"], "train_step": k3["train_step"]["rois"]}}, args.k3_rois)
+        log(f"K3's roi sets saved to {args.k3_rois}")
     k67 = phase_deform_conv_bwd(device)
     paths["cascade_train"] = phase_cascade_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
-        roi_cuda.convert_launch_count, iou_cuda.launch_count, dcn_cuda.launch_count,
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count, dcn_cuda.wgrad_launch_count,
         dcn_cuda.wgrad_s2_launch_count, dcn_cuda.col2im_launch_count,
         dcn_cuda.col2im_s2_launch_count], args.profile)
@@ -1830,9 +1995,15 @@ def main() -> int:
     kernels = [
         entry("roi_align_fwd", "roi_align.cu", K1_REPLACES, "roi_align", k1_err, k1["bfloat16"]),
         entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
-        entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,
-              k3["bfloat16"]),
-        entry("f32_to_bf16", "roi_align_bwd.cu", K3B_REPLACES, "f32_to_bf16", k3["k3b"]),
+        # K3's times are of bf16 g and gradients at phase 5's rois; beside
+        # them its time, pairs and longest list at one training step's rois
+        {**entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,
+                 k3["bfloat16"]),
+         "pairs": k3["pairs"], "longest_list": k3["longest_list"],
+         "train_step_rois": {k: v for k, v in k3["train_step"].items() if k != "rois"}},
+        # K3b is K3's bf16 epilogue: its launches are K3's with bf16 gradients
+        {**entry("f32_to_bf16", "roi_align_bwd.cu", K3B_REPLACES, "roi_align_bwd_bf16",
+                 k3["k3b"]), "fused_into": "roi_align_bwd"},
         entry("pairwise_iou", "iou.cu", K4_REPLACES, "iou", k4),
         # times, bounds and cuDNN's F.conv2d yardstick are per batch of the
         # cascade path: the sum over its DCN layers of each shape

@@ -3,24 +3,33 @@
 
 Counterparts of ``mxdetection_tpu/ops/pallas/roi_align.py``: ``_kernel``
 (K1, the forward), ``_bwd_kernel`` (K3, the backward) and ``kern`` in
-``_convert_pallas`` (K3b, the f32 -> bf16 convert of K3's accumulators).
-Reached from ``ops/roi_align.py::multilevel_roi_align`` for CUDA tensors
-(the backward through its ``autograd.Function``); the plain versions are
+``_convert_pallas`` (K3b, the f32 -> bf16 convert of K3's sums, here the
+epilogue of K3's kernel). Reached from
+``ops/roi_align.py::multilevel_roi_align`` for CUDA tensors (the backward
+through its ``autograd.Function``); the plain versions are
 ``multilevel_roi_align_plain`` and torch autograd of it.
+``roi_align_bwd_tiles`` is the plain model of K3's partition into output
+tiles and of its order of sums.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
+import re
 from typing import Sequence
 
 import torch
 
+from ..roi_align import roi_sample_taps
+from . import build
 from .build import LaunchCount, check, load_library
 
 launch_count = LaunchCount("roi_align")
 bwd_launch_count = LaunchCount("roi_align_bwd")
-convert_launch_count = LaunchCount("f32_to_bf16")
+# K3b is K3's epilogue: the launches of K3 that round their sums to bf16.
+bwd_bf16_launch_count = LaunchCount("roi_align_bwd_bf16")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -86,31 +95,17 @@ def roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
     return out
 
 
-def f32_to_bf16_cuda(x: torch.Tensor) -> torch.Tensor:
-    """K3b: a contiguous f32 CUDA tensor -> the same values in bf16 (round
-    to nearest even, as ``x.to(torch.bfloat16)``)."""
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"f32_to_bf16_cuda: needs a contiguous f32 tensor, got {x.dtype}")
-    if x.device.type != "cuda":
-        raise ValueError(f"f32_to_bf16_cuda: tensor on {x.device}, expected a CUDA device")
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mxdet_f32_to_bf16(x.data_ptr(), out.data_ptr(), x.numel(), stream)
-    check(err, "mxdet_f32_to_bf16")
-    convert_launch_count.add()
-    return out
-
-
 def roi_align_bwd_cuda(grad_out: torch.Tensor, feature_shapes: Sequence[tuple[int, int]],
                        rois: torch.Tensor, strides: Sequence[int], levels: torch.Tensor, *,
                        sampling_ratio: int = 2, roi_valid: torch.Tensor | None = None,
                        out_dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
-    """K3 (+ K3b): grad_out (B, R, P, P, C) f32 or bf16, the (H_l, W_l) of
-    each level, rois (B, R, 4), levels (B, R) -> the gradient of each level's
-    features, (B, H_l, W_l, C) in ``out_dtype``. Sums are f32 atomics into
-    one zeroed buffer for all levels; for bf16 one K3b launch converts it."""
+    """K3 (with K3b as its epilogue): grad_out (B, R, P, P, C) f32 or bf16,
+    the (H_l, W_l) of each level, rois (B, R, 4), levels (B, R) -> the
+    gradient of each level's features, (B, H_l, W_l, C) in ``out_dtype``.
+    A block owns an output tile and sums the terms of the rois that touch it
+    in f32 registers, in a fixed order (``roi_align_bwd_tiles``), and writes
+    the tile once, rounded to bf16 when ``out_dtype`` is bf16; nothing is
+    zeroed or converted apart."""
     if grad_out.dim() != 5 or grad_out.shape[2] != grad_out.shape[3]:
         raise ValueError(f"roi_align_bwd_cuda: grad_out {tuple(grad_out.shape)}, "
                          "expected (B, R, P, P, C)")
@@ -125,6 +120,9 @@ def roi_align_bwd_cuda(grad_out: torch.Tensor, feature_shapes: Sequence[tuple[in
         raise ValueError("roi_align_bwd_cuda: 1 to 5 levels, one stride each")
     if p * sampling_ratio > 64:
         raise ValueError("roi_align_bwd_cuda: output_size * sampling_ratio must be <= 64")
+    if not all(1 <= n <= 32767 for hw in feature_shapes for n in hw):
+        raise ValueError(f"roi_align_bwd_cuda: level shapes {list(feature_shapes)} outside "
+                         "[1, 32767]")
     if roi_valid is None:
         roi_valid = torch.ones((b, r), dtype=torch.bool, device=dev)
     rois, levels, roi_valid = _check_rois("roi_align_bwd_cuda", b, r, rois, levels,
@@ -132,17 +130,184 @@ def roi_align_bwd_cuda(grad_out: torch.Tensor, feature_shapes: Sequence[tuple[in
     grad_out = grad_out.contiguous()
 
     sizes = [b * h * w * c for h, w in feature_shapes]
-    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    out = torch.empty(sum(sizes), dtype=out_dtype, device=dev)
+    # the rois' footprints, then their axis tables: (B*R) * (1 + 2 P S) int4
+    scratch = torch.empty((b * r * (1 + 2 * p * sampling_ratio), 4), dtype=torch.int32,
+                          device=dev)
     n, hs, ws, scales = _level_arrays(feature_shapes, strides)
-    ptrs = (ctypes.c_void_p * n)(*[v.data_ptr() for v in acc.split(sizes)])
+    ptrs = (ctypes.c_void_p * n)(*[v.data_ptr() for v in out.split(sizes)])
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mxdet_roi_align_bwd(
             ptrs, hs, ws, scales, n, rois.data_ptr(), levels.data_ptr(),
-            roi_valid.data_ptr(), grad_out.data_ptr(), b * r, r, c, p, sampling_ratio,
-            int(grad_out.dtype == torch.bfloat16), stream)
+            roi_valid.data_ptr(), grad_out.data_ptr(), scratch.data_ptr(), b, r, c, p,
+            sampling_ratio, int(grad_out.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), stream)
     check(err, "mxdet_roi_align_bwd")
     bwd_launch_count.add()
-    out = acc if out_dtype == torch.float32 else f32_to_bf16_cuda(acc)
+    if out_dtype == torch.bfloat16:
+        bwd_bf16_launch_count.add()
     return [v.view(b, h, w, c) for v, (h, w) in zip(out.split(sizes), feature_shapes)]
+
+
+# ------------------------------------------------------------ K3's partition
+# The kernel's tile and chunk live in its source alone; the plain model
+# reads them from there (``roi_align_bwd_config``). On the card they are held
+# against what the built kernel reports (``roi_align_bwd_layout_cuda``).
+BWD_SOURCE = "roi_align_bwd.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_constants(csrc_dir: str) -> dict:
+    with open(os.path.join(csrc_dir, BWD_SOURCE)) as f:
+        text = f.read()
+    tile = re.search(r"constexpr int kTH = (\d+), kTW = (\d+);", text)
+    lane = re.search(r"constexpr int kCV = (\d+);", text)
+    if tile is None or lane is None:
+        raise RuntimeError(f"{BWD_SOURCE}: kTH, kTW or kCV not found")
+    th, tw = int(tile.group(1)), int(tile.group(2))
+    return {"tile": (th, tw), "chunk": 32 * int(lane.group(1)), "threads": 32 * th}
+
+
+def roi_align_bwd_config(csrc_dir: str | None = None) -> dict:
+    """K3's partition from the kernel source's constants (``csrc_dir``, the
+    package's by default): ``tile`` (rows, columns of cells a block owns),
+    ``chunk`` (channels it sums) and ``threads`` (a warp per tile row)."""
+    return dict(_bwd_constants(csrc_dir or build.CSRC_DIR))
+
+
+def roi_align_bwd_layout_cuda() -> dict:
+    """What the built kernel reports, in ``roi_align_bwd_config``'s keys.
+    Builds the library on first use; launches nothing."""
+    out = (ctypes.c_int * 4)()
+    check(load_library().mxdet_roi_align_bwd_layout(out), "mxdet_roi_align_bwd_layout")
+    th, tw, chunk, threads = out
+    return {"tile": (th, tw), "chunk": chunk, "threads": threads}
+
+
+def roi_footprints(taps: tuple, roi_valid: torch.Tensor) -> torch.Tensor:
+    """The cells each roi's samples touch with a nonzero weight, as
+    (y0, y1, x0, x1) inclusive ranges on its level, (B, R, 4) int64 from
+    ``roi_sample_taps``' output; an invalid roi, or one without a sample
+    inside the map on either axis, gets the empty (2**30, -1, 2**30, -1)."""
+    empty = 1 << 30
+    rng = []
+    for lo, hi, w_lo, w_hi in (taps[:4], taps[4:]):
+        first = torch.where(w_lo != 0, lo, empty).amin(-1)
+        last = torch.maximum(torch.where(w_lo != 0, lo, -1), torch.where(w_hi != 0, hi, -1))
+        rng += [first, last.amax(-1)]
+    fp = torch.stack(rng, -1)
+    keep = roi_valid & (fp[..., 0] <= fp[..., 1]) & (fp[..., 2] <= fp[..., 3])
+    return torch.where(keep[..., None], fp, fp.new_tensor([empty, -1, empty, -1]))
+
+
+def roi_tile_pairs(footprints: torch.Tensor, levels: torch.Tensor,
+                   feature_shapes: Sequence[tuple[int, int]],
+                   tile: tuple[int, int] | None = None) -> tuple[int, int]:
+    """(number of (roi, tile) pairs, longest roi list of a tile) of K3's
+    partition: a roi is in the list of every tile of its level and image that
+    its footprint meets. ``tile`` defaults to the kernel's."""
+    th, tw = tile or roi_align_bwd_config()["tile"]
+    b = footprints.shape[0]
+    nonempty = footprints[..., 0] <= footprints[..., 1]
+    pairs, longest = 0, 0
+    for lvl, (h, w) in enumerate(feature_shapes):
+        on = nonempty & (levels == lvl)
+        fp = footprints[on]
+        img = torch.arange(b, device=fp.device)[:, None].expand(on.shape)[on]
+        ty0, ty1 = fp[:, 0] // th, fp[:, 1] // th + 1
+        tx0, tx1 = fp[:, 2] // tw, fp[:, 3] // tw + 1
+        pairs += int(((ty1 - ty0) * (tx1 - tx0)).sum())
+        # each roi's rectangle of tiles added into a grid by its four corners
+        ny, nx = -(-h // th) + 1, -(-w // tw) + 1
+        grid = torch.zeros((b, ny, nx), dtype=torch.int64, device=fp.device)
+        for ys, xs, sign in ((ty0, tx0, 1), (ty0, tx1, -1), (ty1, tx0, -1), (ty1, tx1, 1)):
+            grid.index_put_((img, ys, xs), torch.full_like(ys, sign), accumulate=True)
+        longest = max(longest, int(grid.cumsum(1).cumsum(2).max()))
+    return pairs, longest
+
+
+def _axis_entries(lo: list, hi: list, w_lo: list, w_hi: list, cell: int, s: int) -> list:
+    """The terms one axis puts on ``cell``, in the kernel's order (sample
+    ascending, lo before hi): (bin, weight) pairs."""
+    out = []
+    for k in range(len(lo)):
+        if lo[k] == cell and w_lo[k] != 0:
+            out.append((k // s, w_lo[k]))
+        if hi[k] == cell and w_hi[k] != 0:
+            out.append((k // s, w_hi[k]))
+    return out
+
+
+def roi_align_bwd_tiles(grad_out: torch.Tensor, feature_shapes: Sequence[tuple[int, int]],
+                        rois: torch.Tensor, strides: Sequence[int], levels: torch.Tensor, *,
+                        sampling_ratio: int = 2, roi_valid: torch.Tensor | None = None,
+                        out_dtype: torch.dtype = torch.float32,
+                        tile: tuple[int, int] | None = None) -> tuple[list, int, int]:
+    """Plain model of K3's partition: the gradient of each level computed
+    tile by tile, each tile from its roi list in roi-index order, each cell's
+    terms added in the kernel's order (roi, sample row, lo/hi, sample
+    column, lo/hi) as f32 (g / S^2) * (wy * wx), then rounded once to
+    ``out_dtype``. Channels never meet in a sum, so the kernel's channel
+    chunks do not enter. ``tile`` defaults to the kernel's
+    (``roi_align_bwd_config``). Returns (gradients (B, H_l, W_l, C) per
+    level, (roi, tile) pairs, longest roi list); the gradients equal autograd
+    of ``multilevel_roi_align_plain`` up to the order of the sums."""
+    th, tw = tile or roi_align_bwd_config()["tile"]
+    b, r, p, _, c = grad_out.shape
+    s = sampling_ratio
+    dev = grad_out.device
+    if roi_valid is None:
+        roi_valid = torch.ones((b, r), dtype=torch.bool, device=dev)
+    taps = roi_sample_taps(rois, levels, feature_shapes, strides, output_size=p,
+                           sampling_ratio=s)
+    fp = roi_footprints(taps, roi_valid.bool()).tolist()
+    taps = [t.tolist() for t in taps]
+    lv = levels.tolist()
+    gv = grad_out.float() / torch.tensor(float(s * s), device=dev)
+    grads, pairs, longest = [], 0, 0
+    for lvl, (h, w) in enumerate(feature_shapes):
+        out = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+        for bi in range(b):
+            mine = [ri for ri in range(r) if lv[bi][ri] == lvl and fp[bi][ri][0] <= fp[bi][ri][1]]
+            for ty0 in range(0, h, th):
+                for tx0 in range(0, w, tw):
+                    todo = [ri for ri in mine if fp[bi][ri][0] < ty0 + th and ty0 <= fp[bi][ri][1]
+                            and fp[bi][ri][2] < tx0 + tw and tx0 <= fp[bi][ri][3]]
+                    pairs += len(todo)
+                    longest = max(longest, len(todo))
+                    acc = torch.zeros((th, tw, c), dtype=torch.float32, device=dev)
+                    for ri in todo:
+                        y_lo, y_hi, wy_lo, wy_hi, x_lo, x_hi, wx_lo, wx_hi = (
+                            t[bi][ri] for t in taps)
+                        rows = [_axis_entries(y_lo, y_hi, wy_lo, wy_hi, ty0 + j, s)
+                                for j in range(th)]
+                        cols = [_axis_entries(x_lo, x_hi, wx_lo, wx_hi, tx0 + j, s)
+                                for j in range(tw)]
+                        acc = _add_roi_terms(acc, gv[bi, ri], rows, cols)
+                    out[bi, ty0:ty0 + th, tx0:tx0 + tw] = acc[:h - ty0, :w - tx0]
+        grads.append(out.to(out_dtype))
+    return grads, pairs, longest
+
+
+def _add_roi_terms(acc: torch.Tensor, gv: torch.Tensor, rows: list, cols: list) -> torch.Tensor:
+    """acc (th, tw, C) plus one roi's terms: for cell (y, x), row entry i and
+    column entry j in (i, j) order, gv[bin_i, bin_j] * (a_i * b_j), each
+    product and sum rounded to f32 as the kernel rounds them."""
+    dev = acc.device
+
+    def step(entries, i):
+        has = torch.tensor([len(e) > i for e in entries], device=dev)
+        pick = [e[i] if len(e) > i else (0, 0.0) for e in entries]
+        return (has, torch.tensor([q[0] for q in pick], device=dev),
+                torch.tensor([q[1] for q in pick], dtype=torch.float32, device=dev))
+
+    for i in range(max(len(e) for e in rows)):
+        r_has, r_bin, a = step(rows, i)
+        for j in range(max(len(e) for e in cols)):
+            c_has, c_bin, bw = step(cols, j)
+            ab = a[:, None] * bw[None, :]
+            term = gv[r_bin[:, None], c_bin[None, :]] * ab[..., None]
+            acc = torch.where((r_has[:, None] & c_has[None, :])[..., None], acc + term, acc)
+    return acc

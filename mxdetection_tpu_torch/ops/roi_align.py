@@ -4,10 +4,10 @@
 take ``multilevel_roi_align_plain`` (the flat-buffer gather of the JAX
 reference), differentiated by torch autograd; CUDA tensors take an
 ``autograd.Function`` whose forward is the hand-written kernel K1 and whose
-backward is K3 (+ its convert K3b), in ``ops/cuda/roi_align.py``; any other
-device raises. The FPN level of each roi is computed here, once, by
-``fpn_level_assign``, and handed to either path, so the two never disagree
-about a roi that sits on a level boundary.
+backward is K3 (with the bf16 convert K3b as its epilogue), in
+``ops/cuda/roi_align.py``; any other device raises. The FPN level of each
+roi is computed here, once, by ``fpn_level_assign``, and handed to either
+path, so the two never disagree about a roi that sits on a level boundary.
 
 Semantics are torchvision/Detectron2 ``aligned=False`` RoIAlign: each of the
 P x P bins averages ``sampling_ratio**2`` bilinear samples; samples within
@@ -44,35 +44,22 @@ def roi_levels(rois: torch.Tensor, num_levels: int, *, min_level: int,
         canonical_scale=canonical_scale, canonical_level=canonical_level) - min_level
 
 
-def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Tensor,
-                               strides: Sequence[int], levels: torch.Tensor, *,
-                               output_size: int = 7, sampling_ratio: int = 2,
-                               roi_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch RoIAlign: the reference the CUDA kernel is held against.
+def roi_sample_taps(rois: torch.Tensor, levels: torch.Tensor,
+                    sizes: Sequence[tuple[int, int]], strides: Sequence[int], *,
+                    output_size: int = 7, sampling_ratio: int = 2) -> tuple:
+    """The bilinear taps of every sample of every roi on its level.
 
-    features: per level (B, H_l, W_l, C), finest first; rois (B, R, 4) xyxy
-    image coords; levels (B, R) int32 in [0, L) -> (B, R, P, P, C) in the
-    feature dtype. Samples are gathered from one flat (B * sum HW, C) buffer
-    and accumulated in float32.
+    rois (B, R, 4) xyxy image coords; levels (B, R) int32 in [0, L); sizes
+    the (H_l, W_l) of each level -> (y_lo, y_hi, wy_lo, wy_hi, x_lo, x_hi,
+    wx_lo, wx_hi), each (B, R, P * S): sample k of an axis lies in bin
+    k // S. Taps are int64 cell indices; weights float32, 0 for a sample
+    beyond [-1, size] (its taps are clamped to the map all the same).
     """
-    b, r = rois.shape[:2]
-    c = features[0].shape[-1]
-    dtype = features[0].dtype
     dev = rois.device
-
-    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)  # (B, sum HW, C)
-    total = flat.shape[1]
-    flat = flat.reshape(b * total, c)
-    sizes = [(f.shape[1], f.shape[2]) for f in features]
-    offsets = [0]
-    for (fh, fw) in sizes[:-1]:
-        offsets.append(offsets[-1] + fh * fw)
     lv = levels.long()
-    h_arr = torch.tensor([s[0] for s in sizes], dtype=torch.int64, device=dev)[lv]
-    w_arr = torch.tensor([s[1] for s in sizes], dtype=torch.int64, device=dev)[lv]
-    off_arr = torch.tensor(offsets, dtype=torch.int64, device=dev)[lv]
+    h_arr = torch.tensor([h for h, _ in sizes], dtype=torch.int64, device=dev)[lv]
+    w_arr = torch.tensor([w for _, w in sizes], dtype=torch.int64, device=dev)[lv]
     stride_arr = torch.tensor([float(s) for s in strides], dtype=torch.float32, device=dev)[lv]
-    off_arr = off_arr + torch.arange(b, device=dev)[:, None] * total  # image offset
 
     rois = rois.float()
     scale = 1.0 / stride_arr
@@ -108,8 +95,40 @@ def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Ten
         return (lo.long(), hi.long(), torch.where(inside, lo_w, zero),
                 torch.where(inside, hi_w, zero))
 
-    y_lo, y_hi, wy_lo, wy_hi = weights(ys, h_arr)
-    x_lo, x_hi, wx_lo, wx_hi = weights(xs, w_arr)
+    return weights(ys, h_arr) + weights(xs, w_arr)
+
+
+def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                               strides: Sequence[int], levels: torch.Tensor, *,
+                               output_size: int = 7, sampling_ratio: int = 2,
+                               roi_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch RoIAlign: the reference the CUDA kernel is held against.
+
+    features: per level (B, H_l, W_l, C), finest first; rois (B, R, 4) xyxy
+    image coords; levels (B, R) int32 in [0, L) -> (B, R, P, P, C) in the
+    feature dtype. Samples are gathered from one flat (B * sum HW, C) buffer
+    and accumulated in float32.
+    """
+    b, r = rois.shape[:2]
+    c = features[0].shape[-1]
+    dtype = features[0].dtype
+    dev = rois.device
+
+    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)  # (B, sum HW, C)
+    total = flat.shape[1]
+    flat = flat.reshape(b * total, c)
+    sizes = [(f.shape[1], f.shape[2]) for f in features]
+    offsets = [0]
+    for (fh, fw) in sizes[:-1]:
+        offsets.append(offsets[-1] + fh * fw)
+    lv = levels.long()
+    w_arr = torch.tensor([s[1] for s in sizes], dtype=torch.int64, device=dev)[lv]
+    off_arr = torch.tensor(offsets, dtype=torch.int64, device=dev)[lv]
+    off_arr = off_arr + torch.arange(b, device=dev)[:, None] * total  # image offset
+
+    p, s = output_size, sampling_ratio
+    y_lo, y_hi, wy_lo, wy_hi, x_lo, x_hi, wx_lo, wx_hi = roi_sample_taps(
+        rois, levels, sizes, strides, output_size=p, sampling_ratio=s)
     base = off_arr[..., None, None]
     wrow = w_arr[..., None, None]
 
@@ -153,7 +172,7 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 class _RoIAlignCuda(torch.autograd.Function):
-    """K1 forward, K3 (+ K3b) backward. The gradient flows to the features
+    """K1 forward, K3 backward (its epilogue K3b for bf16 features). The gradient flows to the features
     only: rois and ``roi_valid`` get none, as in the JAX package's
     ``make_trainable_roi_align``."""
 

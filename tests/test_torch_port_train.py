@@ -333,9 +333,9 @@ TRAIN_WRAPPER_CASES = {
     "bwd_strides": (ValueError, "stride", _bwd_call(strides=(4,))),
     "bwd_levels_shape": (ValueError, "levels", _bwd_call(levels=torch.zeros(2, 4))),
     "bwd_cpu": (ValueError, "CUDA", _bwd_call()),
-    "convert_dtype": (ValueError, "f32", lambda: cuda_roi_align.f32_to_bf16_cuda(
-        torch.zeros(4, dtype=torch.float16))),
-    "convert_cpu": (ValueError, "CUDA", lambda: cuda_roi_align.f32_to_bf16_cuda(torch.zeros(4))),
+    "bwd_out_dtype": (TypeError, "dtypes", _bwd_call(out_dtype=torch.float16)),
+    "bwd_samples": (ValueError, "sampling_ratio", _bwd_call(
+        grad_out=torch.zeros(2, 5, 14, 14, 8), sampling_ratio=5)),
     "iou_shape": (ValueError, "boxes1", lambda: cuda_iou.pairwise_iou_cuda(
         torch.zeros(2, 5, 4), torch.zeros(3, 5, 4))),
     "iou_dtype": (TypeError, "f32", lambda: cuda_iou.pairwise_iou_cuda(
@@ -349,8 +349,9 @@ TRAIN_WRAPPER_CASES = {
 
 @pytest.mark.parametrize("case", sorted(TRAIN_WRAPPER_CASES))
 def test_training_cuda_wrappers_validate_before_launch(case, monkeypatch):
-    """K3, K3b and K4's wrappers refuse what their kernels do not take, and
-    any tensor not on a CUDA device, before building or launching anything."""
+    """K3's wrapper (K3b is its epilogue) and K4's refuse what their kernels
+    do not take, and any tensor not on a CUDA device, before building or
+    launching anything."""
     def no_build():
         raise AssertionError("the wrapper reached the kernel library")
 
