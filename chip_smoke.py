@@ -5,15 +5,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the environment (torch, CUDA, nvcc, the card's name and power
    limit) and builds the kernels of ``mxdetection_tpu_torch/csrc/`` with nvcc;
-2. holds the RoIAlign kernel (K1) against its plain PyTorch version on the
-   card, at the main path's shapes, in f32 (atol 1e-5) and in bf16;
+2. holds the RoIAlign kernel (K1: a warp a bin row, a lane 16 bytes of
+   channels) against its plain PyTorch version on the card, at the main
+   path's shapes, in f32 (atol 1e-5) and in bf16, and at C = 131 (the
+   lanes' channel-by-channel loads) in both; logs its ptxas lines (failing on
+   spills) and the bytes its taps gather beside the bytes bound and the L2
+   copy rate; with ``--baseline DIR``, the largest difference from DIR's
+   kernel;
 3. holds the NMS kernel (K2) against its plain version on the card: an
    RPN-shaped batch (B x 5 problems, N <= 1000, IoU 0.7) and a class-aware
    batch (B problems, N = 1000, IoU 0.5); keep masks must be identical;
    It also holds K2 at the training path's shapes (40 problems x 2000
    boxes, IoU 0.7);
-4. holds the IoU kernel (K4) against its plain version at the RPN
-   assigner's shapes (8 x 279,279 anchors x 100 gt): max error must be 0;
+4. holds the max-IoU assigner (K4: pass A, each row's max IoU and first
+   argmax or each gt's best, and pass B, the low-quality force and the
+   labels; the IoU matrix never reaches memory) bit for bit against the
+   dense plain assigner at the RPN shape (8 x 279,279 anchors x 100 gt with
+   padded rows, duplicated gt, two gt sharing their best anchor, an image
+   without gt and the inside mask; with the force and without), and pass A
+   at ``sample_rois``' and ``relabel_rois``' shapes; the route's peak memory
+   must stay under a byte a (box, gt) pair; logs its ptxas lines (failing on
+   spills);
 5. holds the RoIAlign backward (K3: a block owns an output tile and sums
    the terms of the rois that touch it; K3b, the bf16 convert, is its
    epilogue) against torch autograd of K1's plain version at training
@@ -25,7 +37,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (failing on spills), the tile and chunk of the built kernel (failing
    where they are not the model's) and the (roi, tile) pairs and longest
    roi list; after step 9, the same checks and a time on the rois of the
-   training path's first step (with a seeded upstream gradient);
+   training path's first step (with a seeded upstream gradient), and K1's
+   check and time on those rois;
 6. drives the inference path at full width: Faster R-CNN R50-FPN COCO
    inference in bf16 (seeded random weights), ``batch_transform`` of 8
    uint8 480x640 canvases to 832x1344, ``forward_test`` and
@@ -54,7 +67,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    same config (f32 master weights, bf16 compute) on 8 uint8 480x640
    canvases with about 7 gt boxes each; 2 warm-up steps and 10 timed steps
    (median ms per step, images/s, peak memory). Loss and grad norm must be
-   finite and the launch counts of K1, K2, K3 (bf16 too: K3b) and K4 must rise; a
+   finite and the launch counts of K1, K2, K3 (bf16 too: K3b) and K4 (both
+   passes) must rise; a
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
    card as on the CPU;
@@ -99,16 +113,21 @@ name, the device's idle share, and Chrome traces written to
 ``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz``,
 ``DIR/train_step_trace.json.gz`` and ``DIR/cascade_train_trace.json.gz``.
 ``--k3-rois FILE`` saves phase 5's rois and the training step's to FILE,
-for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE``.
+for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE`` and
+``k1_variants --rois FILE``. ``--baseline DIR`` also runs the RoIAlign
+forward of the checkout DIR (for example the parent commit, unpacked by
+``git archive``) on phase 2's inputs.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work on this run's inputs: the largest of the bytes the function must
 move (each input read once, each output written once) over 3.35 TB/s, its
 f32 operations over 67 TFLOP/s (outside the tensor cores) and, for the
 deformable conv's bf16 products (K5, K6), its tensor-core operations over 989
-TFLOP/s: the H100 SXM's published peaks. The DCN kernels' times, bounds
-and yardsticks are summed over the DCN layers of a batch (K5, K5b) or of a
-training step (K6, K6b, K7, K7b).
+TFLOP/s: the H100 SXM's published peaks. K4's operations count an IoU
+(~14 operations a pass) only for the (box, valid gt) pairs that overlap in
+this run's data, and one comparison a pass for every other pair. The DCN
+kernels' times, bounds and yardsticks are summed over the DCN layers of a
+batch (K5, K5b) or of a training step (K6, K6b, K7, K7b).
 """
 
 from __future__ import annotations
@@ -260,7 +279,37 @@ def roi_flops(n_valid: int, p: int, s: int, c: int) -> float:
     return float(n_valid) * p * p * s * s * c * 8
 
 
-def phase_roi_align(device) -> dict:
+def l2_copy_rate() -> float:
+    """Bytes a second of a copy whose 2 x 16 MiB stay in the 50 MB L2 (read
+    and write counted): about the rate a gather that L2 serves can reach."""
+    import torch
+
+    x = torch.empty(4 << 20, dtype=torch.int32, device="cuda")
+    y = torch.empty_like(x)
+    return 2 * x.numel() * 4 / (time_ms(lambda: y.copy_(x), reps=200) * 1e-3)
+
+
+def k1_check(got, ref, valid, dtype) -> tuple[bool, float, str]:
+    """K1's rule against its plain version: (ok, max |err|, rule)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        ok, rule = err.max().item() <= 1e-5, "atol 1e-5"
+    else:  # one bf16 rounding step: the two f32 sums may round to neighbours
+        ok, rule = bool((err <= 2.0 ** -7 * ref.abs() + 1e-5).all()), "|err| <= 2^-7 |ref| + 1e-5"
+    if not torch.isfinite(got).all() or (got[~valid] != 0.0).any():
+        fail(f"K1 {dtype}: non-finite output or nonzero invalid rows")
+    return ok, err.max().item(), rule
+
+
+def phase_roi_align(device, baseline: str | None = None) -> dict:
+    """K1 against its plain version at phase 2's rois (8 x 1000 over P2-P5
+    of 832x1344, C = 256) in f32 and bf16, and at C = 131 (the lanes' loads
+    channel by channel); its ptxas lines (failing on spills); the bytes its
+    taps gather and their time at the L2 copy rate; with ``baseline``, the
+    largest difference from that checkout's kernel on the same inputs."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
@@ -268,6 +317,7 @@ def phase_roi_align(device) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    ptxas_facts("roi_align_fwd_kernel", "K1")
     gen = torch.Generator().manual_seed(1)
     b, r, strides = MAIN_BATCH, 1000, (4, 8, 16, 32)
     rois, valid = main_path_rois(b, r, gen, device)
@@ -279,25 +329,26 @@ def phase_roi_align(device) -> dict:
     # bf16: touched pixels read, output written, rois/levels/valid read
     nbytes = (pixels * 256 * 2 + b * r * 49 * 256 * 2 + b * r * (16 + 4 + 1))
     bound_ms, bound_by = bound(nbytes, roi_flops(n_valid, 7, 2, 256))
+    gathered = n_valid * 49 * 4 * 4 * 256 * 2
+    l2_rate = l2_copy_rate()
     log(f"K1 bound (bf16): {pixels} pyramid pixels touched, {nbytes / 1e6:.1f} MB moved, "
-        f"{bound_ms:.4f} ms, bound by {bound_by}")
-    result = {"bound_ms": bound_ms, "bound_by": bound_by}
+        f"{bound_ms:.4f} ms, bound by {bound_by}; the taps gather {gathered / 1e9:.3f} GB, "
+        f"{gathered / l2_rate * 1e3:.4f} ms at the L2 copy rate ({l2_rate / 1e12:.2f} TB/s "
+        "measured)")
+    old = None
+    if baseline:
+        from mxdetection_tpu_torch.ops.cuda.k1_variants import baseline_kernel
+
+        old = baseline_kernel(baseline)
+    result = {"bound_ms": bound_ms, "bound_by": bound_by, "gathered_bytes": gathered,
+              "l2_copy_tb_s": l2_rate / 1e12}
     for dtype in (torch.float32, torch.bfloat16):
         feats = main_path_pyramid(b, dtype, gen, device)
         kernel = lambda: roi_align_cuda(feats, rois, strides, levels, roi_valid=valid)
         plain = lambda: ra.multilevel_roi_align_plain(feats, rois, strides, levels, roi_valid=valid)
-        got, ref = kernel().float(), plain().float()
+        got, ref = kernel(), plain()
         torch.cuda.synchronize()
-        err = (got - ref).abs()
-        max_abs = err.max().item()
-        if dtype == torch.float32:
-            ok = max_abs <= 1e-5
-            rule = "atol 1e-5"
-        else:  # one bf16 rounding step: the two f32 sums may round to neighbours
-            ok = bool((err <= 2.0 ** -7 * ref.abs() + 1e-5).all())
-            rule = "|err| <= 2^-7 |ref| + 1e-5"
-        if not torch.isfinite(got).all() or got[~valid].abs().max().item() != 0.0:
-            fail(f"K1 {dtype}: non-finite output or nonzero invalid rows")
+        ok, max_abs, rule = k1_check(got, ref, valid, dtype)
         plain_ms = time_ms(plain, reps=5)
         ms = time_ms(kernel)
         plain_ms = (plain_ms + time_ms(plain, reps=5)) / 2
@@ -308,6 +359,21 @@ def phase_roi_align(device) -> dict:
             fail(f"K1 disagrees with its plain version in {dtype}")
         result[str(dtype).replace("torch.", "")] = {"max_abs_err": max_abs, "ms": ms,
                                                    "plain_ms": plain_ms}
+        if old is not None:
+            prev = old(feats, rois, strides, levels, valid)
+            diff = (got.float() - prev.float()).abs().max().item()
+            log(f"K1 {dtype}: largest difference from {baseline}'s kernel {diff:.3e}; its time "
+                f"{time_ms(lambda: old(feats, rois, strides, levels, valid)):.4f} ms")
+    for dtype in (torch.float32, torch.bfloat16):  # a width the 16-byte loads cannot take
+        feats = [f[..., :131].contiguous() for f in main_path_pyramid(2, dtype, gen, device)]
+        got = roi_align_cuda(feats, rois[:2], strides, levels[:2], roi_valid=valid[:2])
+        ref = ra.multilevel_roi_align_plain(feats, rois[:2], strides, levels[:2],
+                                            roi_valid=valid[:2])
+        ok, max_abs, rule = k1_check(got, ref, valid[:2], dtype)
+        log(f"K1 roi_align {dtype}, C=131 (2 x 1000 rois): max_abs_err {max_abs:.3e} ({rule}: "
+            f"{'ok' if ok else 'FAILED'})")
+        if not ok:
+            fail(f"K1 disagrees with its plain version at C=131 in {dtype}")
     return result
 
 
@@ -385,43 +451,132 @@ def phase_nms(device) -> dict:
 # phase 4: K4
 
 
-def phase_iou(device) -> dict:
-    """K4 at the RPN assigner's shapes: the anchors of the 832x1344 canvas
-    (279,279) against 100 padded gt boxes per image, batch 8."""
+def k4_rpn_case(device, gen):
+    """The RPN assigner's inputs at 8x832x1344: the canvas's 279,279 anchors
+    (one set, expanded over the batch), 100 gt rows an image of which every
+    10th is padding, and the ``inside`` mask of an 800x1333 image, as
+    ``rcnn_loss`` builds them. Image 2 repeats gt rows (argmax ties), image
+    3 has two gt whose best anchor is one and the same (the last-gt rule),
+    image 4 has no valid gt."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.detectors.rcnn import rpn_level_anchors
-    from mxdetection_tpu_torch.ops.boxes import pairwise_iou
-    from mxdetection_tpu_torch.ops.cuda.iou import pairwise_iou_cuda
 
     cfg = load_config("faster_rcnn_r50_fpn_1x")
     anchors = torch.cat(rpn_level_anchors(cfg, (832, 1344), device=device), 0)
     b, n, g = MAIN_BATCH, anchors.shape[0], 100
-    gen = torch.Generator().manual_seed(5)
     xy = torch.rand((b, g, 2), generator=gen) * torch.tensor([1300.0, 780.0])
     wh = torch.exp(torch.rand((b, g, 2), generator=gen) * 4.0 + 2.0)  # 7 .. 400 px
     gt = torch.cat([xy, xy + wh], -1)
-    gt[:, ::10] = 0.0  # padding rows
-    gt = gt.to(device)
-    boxes1 = anchors.expand(b, n, 4)
-    kernel = lambda: pairwise_iou_cuda(boxes1, gt)
-    plain = lambda: pairwise_iou(boxes1, gt)
-    got, ref = kernel(), plain()
-    torch.cuda.synchronize()
-    max_abs = (got - ref).abs().max().item()
-    exact = torch.equal(got, ref)
-    plain_ms = time_ms(plain, reps=3, warmup=1)
-    ms = time_ms(kernel)
-    plain_ms = (plain_ms + time_ms(plain, reps=3, warmup=1)) / 2
-    bound_ms, bound_by = bound(n * 16 + b * g * 16 + b * n * g * 4, b * n * g * 14)
-    log(f"K4 iou: ({b}, {n}, {g}), {int((ref > 0.5).sum())} pairs above 0.5, max_abs_err "
-        f"{max_abs:.3e} (must be 0, bit-identical: {exact}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not exact:
-        fail("K4 differs from its plain version")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    valid = torch.ones((b, g), dtype=torch.bool)
+    valid[:, ::10] = False
+    gt[:, ::10] = 0.0                      # padding rows
+    gt[2, 50:60] = gt[2, 41:51].clone()    # duplicates: the first wins the argmax
+    a = anchors[n // 2].cpu()              # two gt, one best anchor: the last is forced
+    gt[3, 1] = a + torch.tensor([-3.0, -2.0, 3.0, 2.0])
+    gt[3, 2] = a + torch.tensor([3.0, 2.0, -3.0, -2.0])
+    valid[4] = False
+    hw = torch.tensor([800.0, 1333.0], device=device)
+    inside = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0) & (anchors[:, 2] <= hw[1])
+              & (anchors[:, 3] <= hw[0]))
+    return anchors.expand(b, n, 4), gt.to(device), valid.to(device), \
+        inside[None].expand(b, n).contiguous()
+
+
+def k4_facts() -> None:
+    """Log ptxas's lines of K4 (``max_iou_kernel``, one instantiation a
+    mode), failing on spills."""
+    ptxas_facts("max_iou_kernel", "K4")
+
+
+def phase_iou(device) -> dict:
+    """K4, the max-IoU assigner, bit for bit against the dense plain
+    ``assign_max_iou_dense`` (the whole IoU matrix, plain ``pairwise_iou``)
+    at the RPN assigner's shape (``k4_rpn_case``: padding, ties, a shared
+    best anchor, an image without gt, the inside mask), with and without the
+    low-quality force, and its pass A (each row's max and first argmax)
+    against the dense row max at ``sample_rois``' shape (8 x 1100 x 100: the
+    gt then 1000 proposals) and ``relabel_rois``' (8 x 512 x 100); the RPN
+    route's peak memory must stay under a byte a (box, gt) pair."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import matching
+    from mxdetection_tpu_torch.ops.cuda import iou as iou_cuda
+
+    k4_facts()
+    gen = torch.Generator().manual_seed(5)
+    boxes, gt, gt_valid, inside = k4_rpn_case(device, gen)
+    b, n, g = boxes.shape[0], boxes.shape[1], gt.shape[1]
+    kw = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, box_valid=inside)
+    result = {"max_abs_err": 0.0}
+    for lq in (True, False):
+        route = lambda: matching.assign_max_iou(boxes, gt, gt_valid,  # noqa: E731
+                                                match_low_quality=lq, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = route()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ref = matching.assign_max_iou_dense(boxes, gt, gt_valid, match_low_quality=lq, **kw)
+        same = [torch.equal(x, y) for x, y in zip(got, ref)]
+        err = (got.max_iou - ref.max_iou).abs().max().item()
+        forced = int(((ref.labels == 1) & (ref.max_iou < 0.7)).sum())
+        m2 = ref.matched_gt[2][ref.max_iou[2] > 0]
+        copies = (int(((m2 >= 42) & (m2 <= 49)).sum()), int(((m2 >= 51) & (m2 <= 58)).sum()))
+        shared = int(ref.matched_gt[3, n // 2])
+        log(f"K4 assign, RPN shape {(b, n, g)}, low-quality {lq}: matched/labels/max_iou "
+            f"bit-identical to the dense plain version: {same}; {int((ref.labels == 1).sum())} "
+            f"positive ({forced} forced below 0.7), {int((ref.labels == -2).sum())} outside; "
+            f"image 2's boxes matched to the first / second copy of a duplicated gt {copies}; "
+            f"image 3's shared best anchor matched to gt {shared}; image 4 (no gt) labels "
+            f"{sorted(set(ref.labels[4].tolist()))}; peak {peak / 2**20:.1f} MiB above the "
+            f"inputs (an IoU matrix: {b * n * g * 4 / 2**20:.0f})")
+        if not all(same):
+            fail(f"K4 assign (low-quality {lq}) differs from the dense plain assigner")
+        if lq and shared != 2:
+            fail("K4 case: gt 1 and 2 of image 3 do not share their best anchor")
+        if peak >= b * n * g:
+            fail(f"K4 assign: the route took {peak} bytes, at least a byte a (box, gt) pair")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        if lq:
+            n_valid = int(gt_valid.sum())
+            # pairs of a valid gt with a nonzero IoU: only these need the
+            # IoU's ~14 f32 operations, in each of the two passes; every
+            # other pair needs at least one comparison a pass
+            iou = matching.masked_iou(boxes, gt, gt_valid)
+            overlap = int((iou > 0).sum())
+            del iou
+            plain = lambda: matching.assign_max_iou_dense(  # noqa: E731
+                boxes, gt, gt_valid, match_low_quality=True, **kw)
+            counts = (iou_cuda.pass_a_count.n, iou_cuda.pass_b_count.n)
+            ms = time_ms(route)
+            plain_ms = time_ms(plain, reps=3, warmup=1)
+            # the anchors once, the gt and masks, each row's three outputs
+            nbytes = n * 16 + b * g * (16 + 1 + 4) + b * n * (1 + 4 + 8 + 4)
+            bound_ms, bound_by = bound(nbytes, 2.0 * (overlap * 14 + n * n_valid))
+            log(f"K4 assign route (pass A + pass B, {iou_cuda.pass_a_count.n - counts[0]} + "
+                f"{iou_cuda.pass_b_count.n - counts[1]} launches timed): {ms:.4f} ms; dense "
+                f"plain {plain_ms:.4f} ms; {n_valid} valid gt, {overlap} (box, valid gt) pairs "
+                f"of {n * n_valid} overlap; bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{nbytes / 1e6:.1f} MB)")
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          overlap_pairs=overlap, peak_mib=peak / 2**20)
+    for what, props in (
+            ("sample_rois", torch.cat([gt, main_path_rois(b, 1000, gen, device)[0]], 1)),
+            ("relabel_rois", main_path_rois(b, TRAIN_ROIS, gen, device)[0])):
+        rows = props.shape[1]
+        got = matching.max_iou_rows(props, gt, gt_valid)
+        ref = matching.masked_iou(props, gt, gt_valid).max(dim=-1)
+        same = [torch.equal(x, y) for x, y in zip(got, ref)]
+        ms = time_ms(lambda: matching.max_iou_rows(props, gt, gt_valid))
+        log(f"K4 pass A, {what} shape {(b, rows, g)}: max_iou/matched bit-identical to the "
+            f"dense row max: {same}; {ms:.4f} ms")
+        if not all(same):
+            fail(f"K4 pass A differs from the dense row max at the {what} shape")
+        result[what] = {"ms": ms}
+    return result
 
 
 # --------------------------------------------------------------------------
@@ -606,16 +761,17 @@ class CaptureRoiBwd:
         self.module.roi_align_bwd_cuda = self.orig
 
 
-def phase_roi_align_bwd_train(device, cap: dict, k3: dict) -> None:
+def phase_roi_align_bwd_train(device, cap: dict, k3: dict, k1: dict) -> None:
     """K3 on the rois of one Faster R-CNN training step (captured from the
     train path's first step) with a seeded upstream gradient of the step's
     shape and dtype: f32 within 1e-5 of the largest value of autograd of the
     plain version, bf16 equal to the f32 gradient rounded, the pairs and the
-    longest list, timed."""
+    longest list, timed; K1 on the same rois and seeded bf16 features, held
+    against its plain version and timed."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
-    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda, roi_align_cuda
 
     shape, dtype = cap["g"]
     g = torch.randn(shape, generator=torch.Generator().manual_seed(17)).to(device, dtype)
@@ -642,6 +798,18 @@ def phase_roi_align_bwd_train(device, cap: dict, k3: dict) -> None:
     k3["train_step"] = {"ms": ms, "pairs": pairs, "longest_list": longest, "max_abs_err": max_abs,
                         "rois": {"rois": rois.cpu(), "levels": levels.cpu(),
                                  "valid": valid.cpu()}}
+    gen = torch.Generator().manual_seed(18)
+    feats = [torch.randn((g.shape[0], h, w, g.shape[-1]), generator=gen).to(device, dtype)
+             for h, w in shapes]
+    fwd = lambda: roi_align_cuda(feats, rois, strides, levels, roi_valid=valid)  # noqa: E731
+    ok, k1_err, rule = k1_check(fwd(), ra.multilevel_roi_align_plain(
+        feats, rois, strides, levels, roi_valid=valid), valid, dtype)
+    k1_ms = time_ms(fwd)
+    log(f"K1 on the training step's rois ({dtype} features): max_abs_err {k1_err:.3e} ({rule}: "
+        f"{'ok' if ok else 'FAILED'}); {k1_ms:.4f} ms")
+    if not ok:
+        fail("K1 on the training step's rois disagrees with its plain version")
+    k1["train_step"] = {"ms": k1_ms, "max_abs_err": k1_err}
 
 
 # --------------------------------------------------------------------------
@@ -1931,7 +2099,11 @@ def main() -> int:
                              "it with torch.profiler into DIR")
     parser.add_argument("--k3-rois", metavar="FILE", default=None,
                         help="save the RoIAlign backward's two roi sets (phase 5's and one "
-                             "training step's) to FILE, for ops/cuda/k3_variants.py")
+                             "training step's) to FILE, for ops/cuda/k3_variants.py and "
+                             "ops/cuda/k1_variants.py")
+    parser.add_argument("--baseline", metavar="DIR", default=None,
+                        help="also run the RoIAlign forward kernel of the checkout DIR on "
+                             "phase 2's inputs and log its largest difference and time")
     args = parser.parse_args()
     try:
         import torch
@@ -1946,7 +2118,7 @@ def main() -> int:
     device = "cuda"
 
     card = phase_env()
-    k1 = phase_roi_align(device)
+    k1 = phase_roi_align(device, args.baseline)
     k2 = phase_nms(device)
     k4 = phase_iou(device)
     k3 = phase_roi_align_bwd(device)
@@ -1967,8 +2139,9 @@ def main() -> int:
     capture = CaptureRoiBwd()
     paths["train"] = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
-        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count], args.profile, capture)
-    phase_roi_align_bwd_train(device, capture.first, k3)
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
+        iou_cuda.pass_b_count], args.profile, capture)
+    phase_roi_align_bwd_train(device, capture.first, k3, k1)
     if args.k3_rois:
         torch.save({"shapes": k3["shapes"], "strides": k3["strides"], "sets": {
             "synthetic": k3["rois"], "train_step": k3["train_step"]["rois"]}}, args.k3_rois)
@@ -1976,7 +2149,8 @@ def main() -> int:
     k67 = phase_deform_conv_bwd(device)
     paths["cascade_train"] = phase_cascade_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
-        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, dcn_cuda.launch_count,
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
+        iou_cuda.pass_b_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count, dcn_cuda.wgrad_launch_count,
         dcn_cuda.wgrad_s2_launch_count, dcn_cuda.col2im_launch_count,
         dcn_cuda.col2im_s2_launch_count], args.profile)
@@ -1993,7 +2167,12 @@ def main() -> int:
     k1_err = {**k1, "max_abs_err": k1["float32"]["max_abs_err"]}
     k3_err = {**k3, "max_abs_err": k3["float32"]["max_abs_err"]}
     kernels = [
-        entry("roi_align_fwd", "roi_align.cu", K1_REPLACES, "roi_align", k1_err, k1["bfloat16"]),
+        # K1's times are of bf16 at phase 2's 8 x 1000 rois; beside them its time
+        # at one training step's rois and the bytes its taps gather
+        {**entry("roi_align_fwd", "roi_align.cu", K1_REPLACES, "roi_align", k1_err,
+                 k1["bfloat16"]),
+         "train_step_rois": k1["train_step"], "gathered_bytes": k1["gathered_bytes"],
+         "l2_copy_tb_s": k1["l2_copy_tb_s"]},
         entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
         # K3's times are of bf16 g and gradients at phase 5's rois; beside
         # them its time, pairs and longest list at one training step's rois
@@ -2004,7 +2183,13 @@ def main() -> int:
         # K3b is K3's bf16 epilogue: its launches are K3's with bf16 gradients
         {**entry("f32_to_bf16", "roi_align_bwd.cu", K3B_REPLACES, "roi_align_bwd_bf16",
                  k3["k3b"]), "fused_into": "roi_align_bwd"},
-        entry("pairwise_iou", "iou.cu", K4_REPLACES, "iou", k4),
+        # K4 is the max-IoU assigner: its time is the RPN route's (pass A +
+        # pass B) at 8 x 279,279 x 100; the launches of each pass beside
+        {**entry("max_iou_assign", "iou.cu", K4_REPLACES, "iou", k4),
+         "launches_pass_a": sum(n.get("iou_pass_a", 0) for n in paths.values()),
+         "launches_pass_b": sum(n.get("iou_pass_b", 0) for n in paths.values()),
+         "overlap_pairs": k4["overlap_pairs"], "peak_mib": k4["peak_mib"],
+         "row_max_ms": {k: k4[k]["ms"] for k in ("sample_rois", "relabel_rois")}},
         # times, bounds and cuDNN's F.conv2d yardstick are per batch of the
         # cascade path: the sum over its DCN layers of each shape
         {**entry("deform_conv", "deform_conv.cu", K5_REPLACES, "deform_conv", k5[1]),

@@ -14,10 +14,10 @@ Training (``forward_train`` + ``rcnn_loss``): the same trunk with the
 training proposal counts, then ``sample_rois`` picks the second stage's
 rois, RoIAlign (differentiable: K1 forward, K3 backward on the card) feeds
 the bbox head, and the loss assigns anchors to gt (``assign_max_iou``,
-K4's IoU) and subsamples them. With ``cfg.cascade`` each stage after the
+K4's two passes) and subsamples them. With ``cfg.cascade`` each stage after the
 first takes the rois the previous stage refined (decoded from its detached
-deltas) and labels them by IoU at its threshold (``relabel_rois``, K4's IoU,
-no subsampling); the loss weighs stage i by ``stage_loss_weights[i]``. The
+deltas) and labels them by IoU at its threshold (``relabel_rois``, K4's pass
+A, no subsampling); the loss weighs stage i by ``stage_loss_weights[i]``. The
 random draws of the two samplers come from an injectable source
 (``ops/matching.py``). The mask branch and OHEM are ROADMAP Queue 1 items
 11 and 14.
@@ -36,7 +36,6 @@ from ...ops import anchors as anchor_lib
 from ...ops import boxes as box_lib
 from ...ops import matching
 from ...ops import nms as nms_lib
-from ...ops.iou import pairwise_iou_batched
 from ...ops.proposals import generate_proposals
 from ...ops.roi_align import multilevel_roi_align
 from ..backbones.resnet import ResNet
@@ -84,9 +83,7 @@ def relabel_rois(rois: torch.Tensor, roi_valid: torch.Tensor, gt_boxes: torch.Te
     reaches ``iou_thr`` (invalid gt count IoU -1; ties go to the first gt),
     labelled with that gt's 1-based class; other valid rois are background
     (0), invalid rois -1. No subsampling, as the cascade's targets."""
-    iou = pairwise_iou_batched(rois.float().contiguous(), gt_boxes.float())
-    iou.masked_fill_(~gt_valid[:, None, :], -1.0)
-    max_iou, matched = iou.max(dim=-1)  # first index on ties, as jnp.argmax
+    max_iou, matched = matching.max_iou_rows(rois.float(), gt_boxes.float(), gt_valid)
     pos = roi_valid & (max_iou >= iou_thr)
     labels = torch.where(pos, torch.gather(gt_labels1, 1, matched), 0)
     labels = torch.where(roi_valid, labels, -1).to(torch.int32)

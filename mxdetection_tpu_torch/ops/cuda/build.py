@@ -129,11 +129,11 @@ def load_library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(path)
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.mxdet_roi_align_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, p]
+    lib.mxdet_roi_align_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.mxdet_roi_align_bwd.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.mxdet_roi_align_bwd_layout.argtypes = [p]
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
-    lib.mxdet_pairwise_iou.argtypes = [p, ll, p, i, i, i, p, p]
+    lib.mxdet_max_iou.argtypes = [p, ll, p, p, p, i, i, i, i, f, f, f, p, p, p, p, p]
     lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
     lib.mxdet_deform_conv_fwd_smem.argtypes = [i]
     lib.mxdet_deform_conv_weight_tiles.argtypes = [p, p, i, i, p]
@@ -143,7 +143,7 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_deform_col2im.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     lib.mxdet_deform_col2im_layout.argtypes = [i, i, p]
     for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_roi_align_bwd_layout,
-               lib.mxdet_nms_mask_sorted, lib.mxdet_pairwise_iou, lib.mxdet_deform_conv_fwd,
+               lib.mxdet_nms_mask_sorted, lib.mxdet_max_iou, lib.mxdet_deform_conv_fwd,
                lib.mxdet_deform_conv_fwd_smem, lib.mxdet_deform_conv_weight_tiles,
                lib.mxdet_deform_wgrad_doffsets, lib.mxdet_deform_wgrad_layout,
                lib.mxdet_deform_col2im, lib.mxdet_deform_col2im_layout):

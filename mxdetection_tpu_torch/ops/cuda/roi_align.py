@@ -58,7 +58,10 @@ def roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
                    output_size: int = 7, sampling_ratio: int = 2,
                    roi_valid: torch.Tensor | None = None) -> torch.Tensor:
     """features: per level (B, H_l, W_l, C) contiguous, f32 or bf16; rois
-    (B, R, 4) f32; levels (B, R) int32 -> (B, R, P, P, C) in the feature dtype."""
+    (B, R, 4) f32; levels (B, R) int32 -> (B, R, P, P, C) in the feature dtype.
+    A warp owns a bin row and a lane 16 bytes of channels; rows that are not
+    whole 16-byte vectors (or a level not 16-byte aligned) take the same
+    kernel with channel-by-channel loads."""
     b, r = rois.shape[:2]
     c = features[0].shape[-1]
     dtype = features[0].dtype
@@ -83,13 +86,16 @@ def roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
     out = torch.empty((b, r, output_size, output_size, c), dtype=dtype, device=dev)
     n, hs, ws, scales = _level_arrays([tuple(f.shape[1:3]) for f in features], strides)
     ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in features])
+    # a lane loads 16 bytes of channels at once where the rows allow it
+    vec = c * features[0].element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (*features, out))
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mxdet_roi_align_fwd(
             ptrs, hs, ws, scales, n, rois.data_ptr(), levels.data_ptr(),
             roi_valid.data_ptr(), out.data_ptr(), b * r, r, c, output_size,
-            sampling_ratio, int(dtype == torch.bfloat16), stream)
+            sampling_ratio, int(dtype == torch.bfloat16), int(vec), stream)
     check(err, "mxdet_roi_align_fwd")
     launch_count.add()
     return out

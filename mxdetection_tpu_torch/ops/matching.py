@@ -2,12 +2,15 @@
 ``mxdetection_tpu.ops.matching``, batched over images.
 
 Every function takes a leading image dimension where the JAX functions are
-``vmap``-ed per image. The IoU matrices come from
-``ops/iou.py::pairwise_iou_batched`` (K4 on the card, the plain version on
-the CPU; the two agree bit for bit). Only the dense form of
-``assign_max_iou`` is ported: the JAX package's chunked ``lax.map`` form is
-a TPU memory measure with bit-identical results, and the card holds the
-dense (8, 279279, 100) f32 matrix (0.89 GB).
+``vmap``-ed per image. No caller needs the IoU matrix itself, only its
+reductions: each box's max IoU over the valid gt and its first argmax, and
+(for the low-quality force) each gt's best IoU over the boxes. On the card
+K4 (``ops/cuda/iou.py``) reduces the matrix where it computes it, in the
+schedule of the JAX package's chunked ``assign_max_iou`` (pass A reduces
+the rows, pass B recomputes the IoUs for the force), and never writes it.
+On the CPU the dense form ``assign_max_iou_dense`` takes the whole matrix;
+it is also the kernels' plain version. The two agree bit for bit: the max
+of floats is exact in any order, and the schedule changes no IoU.
 
 Randomness. "Randomly keep k of the m eligible items" is "rank the items by
 (eligible, random priority) and keep rank < k", as in JAX. The priorities
@@ -28,7 +31,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .iou import pairwise_iou_batched
+from .boxes import pairwise_iou
 from .nms import topk_stable
 
 Draws = Callable[[str, tuple], torch.Tensor]
@@ -52,22 +55,17 @@ class AssignResult(NamedTuple):
     max_iou: torch.Tensor      # f32 max IoU with any valid gt (>= 0)
 
 
-def assign_max_iou(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor, *,
-                   pos_iou_thr: float, neg_iou_thr: float, min_pos_iou: float = 0.0,
-                   match_low_quality: bool = True,
-                   box_valid: torch.Tensor | None = None) -> AssignResult:
-    """Max-IoU assigner (RPN / R-CNN matching rule), batched over images.
+def masked_iou(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor):
+    """The IoU of boxes (B, n, 4) with gt (B, G, 4): (B, n, G), plain
+    ``pairwise_iou`` with -1 at invalid gt."""
+    return pairwise_iou(boxes, gt_boxes).masked_fill_(~gt_valid[:, None, :], -1.0)
 
-    boxes (B, N, 4) (an anchor set expanded over the batch is read in
-    place), gt_boxes (B, G, 4) padded, gt_valid (B, G), box_valid (B, N).
-    Positive if max_iou >= pos_iou_thr, negative if < neg_iou_thr, ignore
-    (-1) in between; with ``match_low_quality`` every box tying a valid
-    gt's best IoU (above ``min_pos_iou``) is forced positive and matched to
-    the last such gt. Images without gt get all boxes negative; boxes with
-    ``box_valid`` False get -2.
-    """
-    iou = pairwise_iou_batched(boxes, gt_boxes)  # (B, N, G), a fresh tensor
-    iou.masked_fill_(~gt_valid[:, None, :], -1.0)
+
+def assign_from_iou(iou: torch.Tensor, gt_valid: torch.Tensor, *, pos_iou_thr: float,
+                    neg_iou_thr: float, min_pos_iou: float = 0.0, match_low_quality: bool = True,
+                    box_valid: torch.Tensor | None = None) -> AssignResult:
+    """``assign_max_iou``'s rule on a whole masked IoU matrix (B, N, G), -1
+    at invalid gt (``masked_iou``)."""
     max_iou, matched = iou.max(dim=-1)            # first index on ties, as jnp.argmax
     labels = torch.full(max_iou.shape, -1, dtype=torch.int32, device=iou.device)
     labels = torch.where(max_iou < neg_iou_thr, 0, labels).to(torch.int32)
@@ -88,6 +86,56 @@ def assign_max_iou(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.
     if box_valid is not None:
         labels = torch.where(box_valid, labels, -2).to(torch.int32)
     return AssignResult(matched, labels, max_iou.clamp(min=0.0))
+
+
+def assign_max_iou_dense(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                         **kw) -> AssignResult:
+    """``assign_max_iou`` over the whole (B, N, G) IoU matrix: the CPU route
+    and the plain version K4's two passes are held against, bit for bit.
+    ``kw`` as ``assign_max_iou``'s."""
+    return assign_from_iou(masked_iou(boxes, gt_boxes, gt_valid), gt_valid, **kw)
+
+
+def assign_max_iou(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor, *,
+                   pos_iou_thr: float, neg_iou_thr: float, min_pos_iou: float = 0.0,
+                   match_low_quality: bool = True,
+                   box_valid: torch.Tensor | None = None) -> AssignResult:
+    """Max-IoU assigner (RPN / R-CNN matching rule), batched over images.
+
+    boxes (B, N, 4) f32 (an anchor set expanded over the batch is read in
+    place), gt_boxes (B, G, 4) f32 padded, gt_valid (B, G), box_valid (B, N).
+    Positive if max_iou >= pos_iou_thr, negative if < neg_iou_thr, ignore
+    (-1) in between; with ``match_low_quality`` every box tying a valid
+    gt's best IoU (above ``min_pos_iou``) is forced positive and matched to
+    the last such gt. Images without gt get all boxes negative; boxes with
+    ``box_valid`` False get -2. The gt's best IoU is taken over every box,
+    ``box_valid`` or not. CPU tensors take ``assign_max_iou_dense``, CUDA
+    tensors K4's two passes; any other device raises.
+    """
+    kw = dict(pos_iou_thr=pos_iou_thr, neg_iou_thr=neg_iou_thr, min_pos_iou=min_pos_iou,
+              match_low_quality=match_low_quality, box_valid=box_valid)
+    if boxes.device.type == "cpu":
+        return assign_max_iou_dense(boxes, gt_boxes, gt_valid, **kw)
+    if boxes.device.type == "cuda":
+        from .cuda.iou import assign_max_iou_cuda
+
+        return AssignResult(*assign_max_iou_cuda(boxes, gt_boxes, gt_valid, **kw))
+    raise RuntimeError(f"assign_max_iou: no implementation for device {boxes.device}")
+
+
+def max_iou_rows(boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                 gt_valid: torch.Tensor) -> tuple:
+    """Each box's max IoU over the valid gt (-1 where an image has none) and
+    the first gt reaching it (int64): boxes (B, N, 4), gt (B, G, 4) f32 ->
+    two (B, N). CPU tensors take the row max of ``masked_iou``, CUDA tensors
+    one launch of K4's pass A; any other device raises."""
+    if boxes.device.type == "cpu":
+        return tuple(masked_iou(boxes, gt_boxes, gt_valid).max(dim=-1))
+    if boxes.device.type == "cuda":
+        from .cuda.iou import max_iou_rows_cuda
+
+        return max_iou_rows_cuda(boxes, gt_boxes, gt_valid)
+    raise RuntimeError(f"max_iou_rows: no implementation for device {boxes.device}")
 
 
 def random_rank(draws: Draws, name: str, batch: int, n: int) -> torch.Tensor:
@@ -154,9 +202,7 @@ def sample_rois(proposals: torch.Tensor, proposal_valid: torch.Tensor,
         proposals = torch.cat([gt_boxes, proposals], dim=1)
         proposal_valid = torch.cat([gt_valid, proposal_valid], dim=1)
 
-    iou = pairwise_iou_batched(proposals.float().contiguous(), gt_boxes.float())
-    iou.masked_fill_(~gt_valid[:, None, :], -1.0)
-    max_iou, matched = iou.max(dim=-1)
+    max_iou, matched = max_iou_rows(proposals.float(), gt_boxes.float(), gt_valid)
 
     is_fg = proposal_valid & (max_iou >= pos_iou_thr)
     is_bg = proposal_valid & (max_iou < neg_iou_thr_hi) & (max_iou >= neg_iou_thr_lo)

@@ -45,7 +45,6 @@ from mxdetection_tpu_torch.ops import matching as tmatch
 from mxdetection_tpu_torch.ops import roi_align as tra
 from mxdetection_tpu_torch.ops.cuda import iou as cuda_iou
 from mxdetection_tpu_torch.ops.cuda import roi_align as cuda_roi_align
-from mxdetection_tpu_torch.ops.iou import pairwise_iou_batched
 from mxdetection_tpu_torch.train.schedule import warmup_multistep
 from mxdetection_tpu_torch.train.trainer import Trainer, make_optimizer
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
@@ -107,24 +106,33 @@ def test_encode_boxes_and_iof_match_jax():
     np.testing.assert_array_equal(N(tbox.pairwise_iof(T(a), T(b))), N(jbox.pairwise_iof(a, b)))
 
 
-def test_pairwise_iou_batched_matches_jax_and_pallas():
-    """K4's plain path, exactly: against ``boxes.pairwise_iou`` per image and
-    the Pallas kernel in interpret mode (the assigner compares IoUs at a
-    1e-7 margin and breaks argmax ties by index)."""
+def test_max_iou_rows_matches_jax_and_pallas():
+    """K4's pass A, plain path, exactly: each box's max IoU over the valid gt
+    and its first argmax, against the row max of the JAX package's
+    ``boxes.pairwise_iou`` per image and of the Pallas IoU kernel in
+    interpret mode (the assigner compares IoUs at a 1e-7 margin and breaks
+    argmax ties by index), with invalid gt at -1 as the JAX assigner masks
+    them, and an image without valid gt."""
     rng = np.random.RandomState(1)
     a = np.stack([random_boxes(rng, 300) for _ in range(2)])
     b = np.stack([random_boxes(rng, 37) for _ in range(2)])
-    got = N(pairwise_iou_batched(T(a), T(b)))
-    assert got.shape == (2, 300, 37) and got.dtype == np.float32
+    valid = rng.rand(2, 37) > 0.2
+    valid[1] = False
+    got_max, got_arg = tmatch.max_iou_rows(T(a), T(b), T(valid))
+    assert got_max.shape == (2, 300) and got_max.dtype == torch.float32
+    assert got_arg.dtype == torch.int64
     for i in range(2):
-        np.testing.assert_array_equal(got[i], N(jbox.pairwise_iou(a[i], b[i])))
-        np.testing.assert_array_equal(got[i], N(pairwise_iou_pallas(
-            jnp.asarray(a[i]), jnp.asarray(b[i]), interpret=True)))
+        for iou in (jbox.pairwise_iou(a[i], b[i]),
+                    pairwise_iou_pallas(jnp.asarray(a[i]), jnp.asarray(b[i]), interpret=True)):
+            masked = np.where(valid[i][None, :], N(iou), -1.0)
+            np.testing.assert_array_equal(N(got_max[i]), masked.max(1))
+            np.testing.assert_array_equal(N(got_arg[i]), masked.argmax(1))
     shared = np.broadcast_to(a[0], a.shape)  # one anchor set for every image
-    np.testing.assert_array_equal(N(pairwise_iou_batched(T(a[0]).expand(2, 300, 4), T(b))),
-                                  N(pairwise_iou_batched(T(shared), T(b))))
+    for x, y in zip(tmatch.max_iou_rows(T(a[0]).expand(2, 300, 4), T(b), T(valid)),
+                    tmatch.max_iou_rows(T(shared), T(b), T(valid))):
+        np.testing.assert_array_equal(N(x), N(y))
     with pytest.raises(RuntimeError, match="no implementation"):
-        pairwise_iou_batched(T(a).to("meta"), T(b).to("meta"))
+        tmatch.max_iou_rows(T(a).to("meta"), T(b).to("meta"), T(valid).to("meta"))
 
 
 # ---------------------------------------------------------------- matching
@@ -336,14 +344,27 @@ TRAIN_WRAPPER_CASES = {
     "bwd_out_dtype": (TypeError, "dtypes", _bwd_call(out_dtype=torch.float16)),
     "bwd_samples": (ValueError, "sampling_ratio", _bwd_call(
         grad_out=torch.zeros(2, 5, 14, 14, 8), sampling_ratio=5)),
-    "iou_shape": (ValueError, "boxes1", lambda: cuda_iou.pairwise_iou_cuda(
-        torch.zeros(2, 5, 4), torch.zeros(3, 5, 4))),
-    "iou_dtype": (TypeError, "f32", lambda: cuda_iou.pairwise_iou_cuda(
-        torch.zeros(2, 5, 4, dtype=torch.float64), torch.zeros(2, 5, 4))),
-    "iou_wide": (ValueError, "G=", lambda: cuda_iou.pairwise_iou_cuda(
-        torch.zeros(1, 5, 4), torch.zeros(1, 4096, 4))),
-    "iou_cpu": (ValueError, "CUDA", lambda: cuda_iou.pairwise_iou_cuda(
-        torch.zeros(2, 5, 4), torch.zeros(2, 5, 4))),
+    "iou_shape": (ValueError, "boxes", lambda: cuda_iou.max_iou_rows_cuda(
+        torch.zeros(2, 5, 4), torch.zeros(3, 5, 4), torch.ones(3, 5, dtype=torch.bool))),
+    "iou_dtype": (TypeError, "f32", lambda: cuda_iou.max_iou_rows_cuda(
+        torch.zeros(2, 5, 4, dtype=torch.float64), torch.zeros(2, 5, 4),
+        torch.ones(2, 5, dtype=torch.bool))),
+    "iou_wide": (ValueError, "G=", lambda: cuda_iou.max_iou_rows_cuda(
+        torch.zeros(1, 5, 4), torch.zeros(1, 4096, 4), torch.ones(1, 4096, dtype=torch.bool))),
+    "iou_cpu": (ValueError, "CUDA", lambda: cuda_iou.max_iou_rows_cuda(
+        torch.zeros(2, 5, 4), torch.zeros(2, 5, 4), torch.ones(2, 5, dtype=torch.bool))),
+    "iou_no_gt": (ValueError, "G=", lambda: cuda_iou.assign_max_iou_cuda(
+        torch.zeros(1, 5, 4), torch.zeros(1, 0, 4), torch.ones(1, 0, dtype=torch.bool),
+        pos_iou_thr=0.7, neg_iou_thr=0.3)),
+    "iou_gt_valid_shape": (ValueError, "gt_valid", lambda: cuda_iou.assign_max_iou_cuda(
+        torch.zeros(2, 5, 4), torch.zeros(2, 3, 4), torch.ones(2, 4, dtype=torch.bool),
+        pos_iou_thr=0.7, neg_iou_thr=0.3)),
+    "iou_box_valid_shape": (ValueError, "box_valid", lambda: cuda_iou.assign_max_iou_cuda(
+        torch.zeros(2, 5, 4), torch.zeros(2, 3, 4), torch.ones(2, 3, dtype=torch.bool),
+        pos_iou_thr=0.7, neg_iou_thr=0.3, box_valid=torch.ones(2, 4, dtype=torch.bool))),
+    "iou_devices": (ValueError, "every tensor", lambda: cuda_iou.assign_max_iou_cuda(
+        torch.zeros(2, 5, 4), torch.zeros(2, 3, 4, device="meta"),
+        torch.ones(2, 3, dtype=torch.bool), pos_iou_thr=0.7, neg_iou_thr=0.3)),
 }
 
 
