@@ -12,11 +12,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    spills) and the bytes its taps gather beside the bytes bound and the L2
    copy rate; with ``--baseline DIR``, the largest difference from DIR's
    kernel;
-3. holds the NMS kernel (K2) against its plain version on the card: an
-   RPN-shaped batch (B x 5 problems, N <= 1000, IoU 0.7) and a class-aware
-   batch (B problems, N = 1000, IoU 0.5); keep masks must be identical;
-   It also holds K2 at the training path's shapes (40 problems x 2000
-   boxes, IoU 0.7);
+3. holds the NMS kernel (K2: the mask's upper tiles, then a block per
+   problem sweeping 64 rows a step) against its plain version on the card:
+   an RPN-shaped batch (B x 5 problems, N <= 1000, IoU 0.7), a class-aware
+   batch (B problems, N = 1000, IoU 0.5) and the training path's shapes
+   (40 problems x 2000 boxes, IoU 0.7), timed, and awkward problems (ragged
+   N, N = 2100 and 5000 with invalid rows among the valid ones, a problem
+   with no valid row, NaN, zero-area and duplicated boxes, one box that
+   suppresses every later row, IoUs exactly at the threshold); keep masks
+   must be identical; logs ptxas's lines (failing on spills) and the
+   sweep's SASS atomics and warp reductions; after step 9, the same check
+   and times on the problems the first Faster R-CNN inference batch and
+   the first training step handed K2, with the share of rows kept and of
+   tested pairs that do not intersect;
 4. holds the max-IoU assigner (K4: pass A, each row's max IoU and first
    argmax or each gt's best, and pass B, the low-quality force and the
    labels; the IoU matrix never reaches memory) bit for bit against the
@@ -114,7 +122,9 @@ name, the device's idle share, and Chrome traces written to
 ``DIR/train_step_trace.json.gz`` and ``DIR/cascade_train_trace.json.gz``.
 ``--k3-rois FILE`` saves phase 5's rois and the training step's to FILE,
 for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE`` and
-``k1_variants --rois FILE``. ``--baseline DIR`` also runs the RoIAlign
+``k1_variants --rois FILE``. ``--k2-boxes FILE`` saves the problems K2 was
+handed in the first Faster R-CNN inference batch and training step, for
+``k2_variants --boxes FILE``. ``--baseline DIR`` also runs the RoIAlign
 forward of the checkout DIR (for example the parent commit, unpacked by
 ``git archive``) on phase 2's inputs.
 
@@ -123,7 +133,9 @@ same work on this run's inputs: the largest of the bytes the function must
 move (each input read once, each output written once) over 3.35 TB/s, its
 f32 operations over 67 TFLOP/s (outside the tensor cores) and, for the
 deformable conv's bf16 products (K5, K6), its tensor-core operations over 989
-TFLOP/s: the H100 SXM's published peaks. K4's operations count an IoU
+TFLOP/s: the H100 SXM's published peaks. K2's operations count an IoU
+test (~14 operations) only for the (kept row, later valid row) pairs that
+the greedy sweep needs on this run's data. K4's operations count an IoU
 (~14 operations a pass) only for the (box, valid gt) pairs that overlap in
 this run's data, and one comparison a pass for every other pair. The DCN
 kernels' times, bounds and yardsticks are summed over the DCN layers of a
@@ -402,15 +414,13 @@ def nms_problems(p: int, n: int, counts, gen, device, labels: bool = False):
     return boxes.to(device), valid.to(device)
 
 
-def phase_nms(device) -> dict:
+def nms_cases(device) -> list:
+    """[(name, IoU threshold, (boxes, valid))]: K2's three main-path shapes."""
     import torch
-
-    from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
-    from mxdetection_tpu_torch.ops.nms import nms_mask_sorted_plain
 
     gen = torch.Generator().manual_seed(2)
     b = MAIN_BATCH
-    cases = [
+    return [
         ("rpn", 0.7, nms_problems(b * 5, 1000, [1000, 1000, 1000, 1000, 819] * b, gen, device)),
         ("class_aware", 0.5, nms_problems(b, 1000, [1000] * b, gen, device, labels=True)),
         # the training proposals: pre_nms_top_n_train 2000 per level; P6 of
@@ -418,32 +428,146 @@ def phase_nms(device) -> dict:
         ("rpn_train", 0.7, nms_problems(b * 5, 2000, [2000, 2000, 2000, 2000, 819] * b, gen,
                                         device)),
     ]
+
+
+def nms_edge_cases(device) -> list:
+    """[(name, IoU threshold, (boxes, valid))]: awkward problems for K2. Ragged
+    N (1, 63, 64, 65, 130) with problems of different valid counts; N = 2100
+    and 5000 (more than one 32-word chunk a row tile) with invalid rows among
+    the valid ones; a problem with no valid row; NaN, zero-area and
+    duplicated boxes; one box that suppresses every later row; IoUs exactly
+    at the threshold (0.5 and 0.7, each exact in f32 arithmetic)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(6)
+    cases = [(f"n{n}", 0.7, nms_problems(len(counts), n, counts, gen, device))
+             for n, counts in ((1, [1, 0]), (63, [63, 40]), (64, [64, 1]), (65, [65, 64]),
+                               (130, [130, 129, 66, 2]))]
+    for n in (2100, 5000):
+        boxes, valid = nms_problems(2, n, [n, n - 37], gen, device)
+        holes = torch.rand(valid.shape, generator=gen).to(device) < 0.1
+        cases.append((f"n{n}_holes", 0.7, (boxes, valid & ~holes)))
+    boxes, valid = nms_problems(2, 300, [300, 300], gen, device)
+    cases.append(("all_invalid", 0.7, (boxes, torch.zeros_like(valid))))
+    boxes, valid = nms_problems(3, 200, [200, 200, 150], gen, device)
+    boxes[:, 5::17, 1] = float("nan")
+    boxes[:, 9::23] = 0.0                       # zero area
+    boxes[2, 3, 2] = boxes[2, 3, 0]             # zero width
+    boxes[:, 40:60] = boxes[:, 20:40].clone()   # duplicates of earlier rows
+    cases.append(("nan_zero_dup", 0.5, (boxes, valid)))
+    first = torch.tensor([100.0, 100.0, 300.0, 300.0])
+    jitter = torch.rand((2, 500, 4), generator=gen) * 2.0 - 1.0
+    cases.append(("suppress_all", 0.7, ((first + jitter).to(device),
+                                        torch.ones((2, 500), dtype=torch.bool, device=device))))
+    # four pairs apart; the second box of each at IoU exactly 0.7 (70 / 100),
+    # exactly 0.5 (50 / 100), just over 0.5 and just over 0.7 with the first
+    at = torch.tensor([[x, 0.0, x + 10.0, 10.0] for x in (0.0, 20.0, 40.0, 60.0)]
+                      + [[0.0, 0.0, 10.0, 7.0], [20.0, 0.0, 30.0, 5.0],
+                         [40.0, 0.0, 50.0, 5.0001], [60.0, 0.0, 70.0, 7.0001]])
+    for thr in (0.5, 0.7):
+        cases.append((f"at_thr_{thr}", thr, (at[None].to(device),
+                                             torch.ones((1, 8), dtype=torch.bool, device=device))))
+    return cases
+
+
+def k2_bound(keep, valid) -> tuple[float, str, int]:
+    """(bound ms, by, IoU pairs) of K2 on this run's data: boxes and valid
+    read once and keep written once, and an IoU test (~14 f32 operations)
+    for each pair the greedy sweep needs, a kept row and a later valid row."""
+    later = valid.flip(-1).cumsum(-1).flip(-1) - valid.long()  # valid rows after each row
+    pairs = int((later * keep).sum())
+    p, n = valid.shape
+    return (*bound(p * n * (16 + 1 + 1), pairs * 14), pairs)
+
+
+def k2_build_facts() -> None:
+    """Log ptxas's lines of K2 (``nms_mask_kernel``, ``nms_sweep_kernel``),
+    failing on spills, and the shared-memory atomics and warp reductions in
+    the sweep's SASS (the removed set is ORed by owner warps, no atomics)."""
+    funcs = ptxas_facts("nms_", "K2")
+    for fname, func in funcs.items():
+        if "sweep" in fname:
+            log(f"K2 sweep SASS (cuobjdump): ATOMS {func.count('ATOMS')}, "
+                f"CAS {func.count('CAS')}, REDUX {func.count('REDUX')}, "
+                f"UBLKCP {func.count('UBLKCP')}")
+
+
+def nms_shares(boxes, valid, keep) -> dict:
+    """What K2's work depends on in one set of problems: the share of valid
+    rows kept, and of the (valid row, later column) pairs its mask kernel
+    tests, the share that do not intersect (they decide without the
+    division, as in ``iou_over``)."""
+    import torch
+
+    n = valid.shape[1]
+    later = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
+    tested = disjoint = 0
+    for b, v in zip(boxes.float(), valid):
+        wh = torch.minimum(b[:, None, 2:], b[None, :, 2:]) - \
+            torch.maximum(b[:, None, :2], b[None, :, :2])
+        pairs = later & v[:, None]
+        tested += int(pairs.sum())
+        disjoint += int((pairs & ~((wh[..., 0] > 0) & (wh[..., 1] > 0))).sum())
+    return {"keep_share": int(keep.sum()) / max(int(valid.sum()), 1),
+            "disjoint_share": disjoint / max(tested, 1), "tested_pairs": tested}
+
+
+def k2_case(name: str, thr: float, boxes, valid) -> dict:
+    """K2 bit for bit against its plain version on one set of problems,
+    timed beside it, with the bound from the plain keep mask and the shares
+    of ``nms_shares``; fails on any differing keep bit."""
+    import torch
+
+    from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
+    from mxdetection_tpu_torch.ops.nms import nms_mask_sorted_plain
+
+    kernel = lambda: nms_mask_sorted_cuda(boxes, valid, thr)
+    plain = lambda: nms_mask_sorted_plain(boxes, valid, thr)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    mismatches = int(err.sum().item())
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    ms = time_ms(kernel)
+    plain_ms = (plain_ms + time_ms(plain, reps=3, warmup=1)) / 2
+    p, n = boxes.shape[:2]
+    bound_ms, bound_by, pairs = k2_bound(ref, valid)
+    shares = nms_shares(boxes, valid, ref)
+    log(f"K2 nms {name}: {(p, n)} problems x N, thr {thr}: "
+        f"kept {int(ref.sum())}/{int(valid.sum())} ({shares['keep_share']:.4f}), disjoint "
+        f"share of the {shares['tested_pairs']} tested pairs {shares['disjoint_share']:.4f}, "
+        f"mismatched keep bits {mismatches}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {pairs} (kept, later valid) pairs)")
+    if mismatches:
+        fail(f"K2 keep mask differs from its plain version ({name})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "pairs": pairs, "max_abs_err": err.max().item(), **shares}
+
+
+def phase_nms(device) -> dict:
+    """K2 bit for bit against its plain version at the three main-path
+    shapes (timed, with the bound from each run's keep mask) and on
+    ``nms_edge_cases``."""
+    from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
+    from mxdetection_tpu_torch.ops.nms import nms_mask_sorted_plain
+
+    k2_build_facts()
     result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for name, thr, (boxes, valid) in cases:
-        kernel = lambda: nms_mask_sorted_cuda(boxes, valid, thr)
-        plain = lambda: nms_mask_sorted_plain(boxes, valid, thr)
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs()
-        mismatches = int(err.sum().item())
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        ms = time_ms(kernel)
-        plain_ms = (plain_ms + time_ms(plain, reps=3, warmup=1)) / 2
-        p, n = boxes.shape[:2]
-        # boxes and valid read, keep written; an IoU test (~14 f32 ops) per
-        # pair of the upper triangle
-        bound_ms, bound_by = bound(p * n * (16 + 1 + 1), p * n * (n - 1) / 2 * 14)
-        log(f"K2 nms {name}: {(p, n)} problems x N, thr {thr}: "
-            f"kept {int(ref.sum())}/{int(valid.sum())}, mismatched keep bits {mismatches}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    for name, thr, (boxes, valid) in nms_cases(device):
+        case = result[name] = k2_case(name, thr, boxes, valid)
+        result["max_abs_err"] = max(result["max_abs_err"], case["max_abs_err"])
+        for k in ("ms", "plain_ms", "bound_ms"):
+            result[k] += case[k]
+        result["bound_by"] = case["bound_by"]
+    for name, thr, (boxes, valid) in nms_edge_cases(device):
+        got = nms_mask_sorted_cuda(boxes, valid, thr)
+        ref = nms_mask_sorted_plain(boxes, valid, thr)
+        mismatches = int((got != ref).sum())
+        log(f"K2 edge case {name}: {tuple(valid.shape)} problems x N, thr {thr}: kept "
+            f"{ref.sum(-1).tolist()} of {valid.sum(-1).tolist()} valid, mismatched keep bits "
+            f"{mismatches}")
         if mismatches:
-            fail(f"K2 keep mask differs from its plain version ({name})")
-        result[name] = {"ms": ms, "plain_ms": plain_ms}
-        result["max_abs_err"] = max(result["max_abs_err"], err.max().item())
-        result["ms"] += ms
-        result["plain_ms"] += plain_ms
-        result["bound_ms"] += bound_ms
-        result["bound_by"] = bound_by
+            fail(f"K2 keep mask differs from its plain version (edge case {name})")
     return result
 
 
@@ -761,6 +885,41 @@ class CaptureRoiBwd:
         self.module.roi_align_bwd_cuda = self.orig
 
 
+class CaptureNms:
+    """While active, keeps a copy of the boxes, validity and IoU threshold
+    of the first ``limit`` calls of K2's wrapper (``ops/nms.py`` reads it
+    from its module at each call): the problems a path hands K2."""
+
+    def __init__(self, limit: int):
+        from mxdetection_tpu_torch.ops.cuda import nms as nms_cuda
+
+        self.module, self.limit, self.calls = nms_cuda, limit, []
+
+    def __enter__(self):
+        inner = self.orig = self.module.nms_mask_sorted_cuda
+
+        def wrapped(boxes, valid, iou_thr):
+            if len(self.calls) < self.limit:
+                self.calls.append((boxes.clone(), valid.clone(), float(iou_thr)))
+            return inner(boxes, valid, iou_thr)
+
+        self.module.nms_mask_sorted_cuda = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.nms_mask_sorted_cuda = self.orig
+
+
+def phase_nms_proposals(sets: dict) -> dict:
+    """K2 on the problems the main paths handed it ({name: (boxes, valid,
+    IoU threshold)}, captured from the first Faster R-CNN inference batch
+    and the first training step): bit for bit against its plain version,
+    timed, with its bound and the shares of rows kept and of tested pairs
+    that do not intersect."""
+    return {name: k2_case(name, thr, boxes, valid)
+            for name, (boxes, valid, thr) in sets.items()}
+
+
 def phase_roi_align_bwd_train(device, cap: dict, k3: dict, k1: dict) -> None:
     """K3 on the rois of one Faster R-CNN training step (captured from the
     train path's first step) with a seeded upstream gradient of the step's
@@ -943,7 +1102,8 @@ def drive(model, cfg, raw, hw, dtype, counters, card: str, what: str) -> tuple:
     return launches, dets, out, times
 
 
-def phase_main_path(device, card: str, counters, profile_dir: str | None) -> dict:
+def phase_main_path(device, card: str, counters, profile_dir: str | None,
+                    nms_capture: CaptureNms) -> dict:
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -961,7 +1121,8 @@ def phase_main_path(device, card: str, counters, profile_dir: str | None) -> dic
     raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
                         dtype=torch.uint8).to(device)
     hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
-    launches = drive(model, cfg, raw, hw, dtype, counters, card, "main path")[0]
+    with nms_capture:
+        launches = drive(model, cfg, raw, hw, dtype, counters, card, "main path")[0]
     if profile_dir is not None:
         phase_profile(model, cfg, raw, hw, dtype, profile_dir)
     return launches
@@ -1687,7 +1848,7 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
 
 
 def phase_train_path(device, card: str, counters, profile_dir: str | None,
-                     capture: CaptureRoiBwd) -> dict:
+                     capture: CaptureRoiBwd, nms_capture: CaptureNms) -> dict:
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -1701,7 +1862,7 @@ def phase_train_path(device, card: str, counters, profile_dir: str | None,
     log(f"train path: {cfg.name}, f32 master weights, {cfg.backbone.dtype} compute, seeded "
         f"init in {time.perf_counter() - t0:.1f} s")
     batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
-    with capture:
+    with capture, nms_capture:
         return drive_train(trainer, batch, counters, card, "train path", profile_dir,
                            "train_step_trace.json.gz")
 
@@ -2101,6 +2262,10 @@ def main() -> int:
                         help="save the RoIAlign backward's two roi sets (phase 5's and one "
                              "training step's) to FILE, for ops/cuda/k3_variants.py and "
                              "ops/cuda/k1_variants.py")
+    parser.add_argument("--k2-boxes", metavar="FILE", default=None,
+                        help="save the problems K2 was handed in the first Faster R-CNN "
+                             "inference batch and training step to FILE, for "
+                             "ops/cuda/k2_variants.py --boxes")
     parser.add_argument("--baseline", metavar="DIR", default=None,
                         help="also run the RoIAlign forward kernel of the checkout DIR on "
                              "phase 2's inputs and log its largest difference and time")
@@ -2130,8 +2295,10 @@ def main() -> int:
 
     # The Faster R-CNN path runs right after the kernel checks it ran after
     # before the cascade's phases existed, so its times stay comparable.
+    nms_inference, nms_train = CaptureNms(2), CaptureNms(1)
     paths = {"inference": phase_main_path(device, card, [roi_cuda.launch_count,
-                                                         nms_cuda.launch_count], args.profile)}
+                                                         nms_cuda.launch_count], args.profile,
+                                          nms_inference)}
     k5 = phase_deform_conv(device)
     paths["cascade_inference"] = phase_cascade_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
@@ -2140,8 +2307,18 @@ def main() -> int:
     paths["train"] = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
-        iou_cuda.pass_b_count], args.profile, capture)
+        iou_cuda.pass_b_count], args.profile, capture, nms_train)
     phase_roi_align_bwd_train(device, capture.first, k3, k1)
+    nms_sets = dict(zip(("faster_rpn", "faster_class_aware", "train_rpn"),
+                        nms_inference.calls + nms_train.calls))
+    if len(nms_sets) != 3:
+        fail(f"K2 was handed {len(nms_inference.calls)} problem sets in a Faster R-CNN batch "
+             f"and {len(nms_train.calls)} in a training step, expected 2 and 1")
+    k2["main_path_proposals"] = phase_nms_proposals(nms_sets)
+    if args.k2_boxes:
+        torch.save({name: (b.cpu(), v.cpu(), thr) for name, (b, v, thr) in nms_sets.items()},
+                   args.k2_boxes)
+        log(f"K2's main-path problems saved to {args.k2_boxes}")
     if args.k3_rois:
         torch.save({"shapes": k3["shapes"], "strides": k3["strides"], "sets": {
             "synthetic": k3["rois"], "train_step": k3["train_step"]["rois"]}}, args.k3_rois)
@@ -2173,7 +2350,11 @@ def main() -> int:
                  k1["bfloat16"]),
          "train_step_rois": k1["train_step"], "gathered_bytes": k1["gathered_bytes"],
          "l2_copy_tb_s": k1["l2_copy_tb_s"]},
-        entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
+        # K2's times are at phase 3's three shapes; beside them its time, bound
+        # and shares on the problems of a Faster batch and training step
+        {**entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
+         "main_path_proposals": {name: {k: v for k, v in case.items() if k != "max_abs_err"}
+                                 for name, case in k2["main_path_proposals"].items()}},
         # K3's times are of bf16 g and gradients at phase 5's rois; beside
         # them its time, pairs and longest list at one training step's rois
         {**entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,

@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_roi_align_bwd.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.mxdet_roi_align_bwd_layout.argtypes = [p]
     lib.mxdet_nms_mask_sorted.argtypes = [p, p, i, i, f, p, p, p]
+    lib.mxdet_nms_scratch_words.argtypes = [i, i]
+    lib.mxdet_nms_scratch_words.restype = ll
     lib.mxdet_max_iou.argtypes = [p, ll, p, p, p, i, i, i, i, f, f, f, p, p, p, p, p]
     lib.mxdet_deform_conv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
     lib.mxdet_deform_conv_fwd_smem.argtypes = [i]

@@ -2,7 +2,9 @@
 
 Counterpart of ``mxdetection_tpu/ops/pallas/nms.py::_nms_kernel`` (K2).
 Reached from ``ops/nms.py::nms_mask_sorted`` for CUDA tensors; its plain
-version is ``nms_mask_sorted_plain`` in the same module.
+version is ``nms_mask_sorted_plain`` in the same module. The kernels' own
+layout of the mask scratch is known only to ``csrc/nms.cu``, which reports
+its size (``mxdet_nms_scratch_words``).
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ def nms_mask_sorted_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"nms_mask_sorted_cuda: boxes on {dev}, expected a CUDA device")
     boxes = boxes.float().contiguous()
     valid = valid.to(torch.bool).contiguous()
-    col_blocks = -(-n // 64)
-    mask = torch.empty((p, n, col_blocks), dtype=torch.int64, device=dev)
-    keep = torch.empty((p, n), dtype=torch.bool, device=dev)
     lib = load_library()
+    # the suppression bitmask's scratch, in the kernel's own layout
+    mask = torch.empty(lib.mxdet_nms_scratch_words(p, n), dtype=torch.int64, device=dev)
+    keep = torch.empty((p, n), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mxdet_nms_mask_sorted(boxes.data_ptr(), valid.data_ptr(), p, n,

@@ -22,7 +22,7 @@ import torch
 from mxdetection_tpu.ops import matching as jmatch
 
 from mxdetection_tpu_torch.ops import matching as tmatch
-from mxdetection_tpu_torch.ops.cuda import k1_variants, k4_variants
+from mxdetection_tpu_torch.ops.cuda import k1_variants, k2_variants, k4_variants
 from mxdetection_tpu_torch.ops.cuda.build import CSRC_DIR
 from mxdetection_tpu_torch.ops.cuda.variants import copy_with_edits
 
@@ -155,14 +155,16 @@ def test_assign_dispatches_by_device():
 
 
 VARIANT_EDITS = [("k1", name) for name in k1_variants.VARIANTS] + \
+    [("k2", name) for name in k2_variants.VARIANTS] + \
     [("k4", name) for name in k4_variants.VARIANTS]
 
 
 @pytest.mark.parametrize("tool,name", VARIANT_EDITS)
 def test_variant_edits_apply(tool, name, tmp_path):
-    """Each variant of ``k1_variants`` and ``k4_variants`` finds every text
-    it edits exactly once in the kernel's source, and changes it."""
-    mod = {"k1": k1_variants, "k4": k4_variants}[tool]
+    """Each variant of ``k1_variants``, ``k2_variants`` and ``k4_variants``
+    finds every text it edits exactly once in the kernel's source, and
+    changes it."""
+    mod = {"k1": k1_variants, "k2": k2_variants, "k4": k4_variants}[tool]
     csrc = copy_with_edits(CSRC_DIR, str(tmp_path / name), mod.SOURCE, mod.VARIANTS[name])
     with open(os.path.join(csrc, mod.SOURCE)) as f:
         edited = f.read()
