@@ -108,7 +108,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rising (K5, K5b, K6, K6b, K7, K7b 27 or 3 times a step), after a
    card-vs-CPU f32 step at 256x320 with that noise in the first DCN of each
    stage (losses 1e-4, grad norms 1e-3, discrete metrics equal);
-12. prints the card's name and power limit, the kernel table as one JSON
+12. drives the SyncBN data-parallel training path: the
+   ``multihost_dp_faster_rcnn_v5p16`` config (SyncBN at every backbone norm,
+   every stage training) through ``Trainer.run_step`` in a NCCL process group
+   of world size 1 (a TCP rendezvous on 127.0.0.1): a small f32 step on the
+   card against the CPU as in 9, the same step with ``backbone.remat``
+   (losses and grad norms within 1e-5 relative, running statistics the same);
+   at 8x832x1344 in bf16 a checkpoint round trip (save after step 1, step 2
+   in a fresh ``Trainer`` restored from it within 1e-6 relative of the
+   original's), 2 warm-up and 10 timed steps beside the Faster step's
+   median and peak memory, K1-K4's launch counts rising, SyncBN's running
+   statistics finite and moved in every layer, and the peak memory with
+   remat; the process group is destroyed before the results;
+13. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -162,6 +174,7 @@ K6B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:894"
 K7_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:345"
 K7B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:804"
 CASCADE = "cascade_rcnn_r101_dcn_1x"
+SYNC = "multihost_dp_faster_rcnn_v5p16"
 MAIN_BATCH = 8
 TIMED_BATCHES = 20
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -1693,17 +1706,34 @@ SMALL_TRAIN_OVERRIDES = {
     "rpn.pre_nms_top_n_train": 400, "rpn.post_nms_top_n_train": 100}
 
 
+def small_train_step(cfg, state: dict, batch: dict, draws, device, what: str) -> tuple:
+    """One training step of ``cfg`` on ``device`` from the weights
+    ``state``: (its metrics and per-module grad norms, the norms' running
+    statistics after it, on the CPU)."""
+    from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    m = build_detector(cfg, device="cpu", train=True)
+    m.load_state_dict(state)
+    t0 = time.perf_counter()
+    metrics = Trainer(cfg, m, device=device).run_step(batch, draws=draws)
+    res = {**{k: float(v) for k, v in metrics.items()}, **grad_norms(m)}
+    log(f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
+    stats = {k: v.detach().cpu() for k, v in m.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return res, stats
+
+
 def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
-                       what: str = "small f32 train step") -> None:
+                       what: str = "small f32 train step") -> tuple:
     """One f32 training step at 256x320, batch 2, on the card (kernels) and
     on the CPU (plain versions, which the CPU tests hold against the JAX
     package), from the same weights (seed 0, or ``state``) and the same
-    random draws."""
+    random draws. Returns what ``check_remat`` needs to repeat the card's step."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.registry import build_detector
-    from mxdetection_tpu_torch.train.trainer import Trainer
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1714,15 +1744,9 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
     if state is None:
         model = build_detector(cfg, device="cpu", seed=0, train=True)
         state = {k: v.clone() for k, v in model.state_dict().items()}
-    res = {}
-    for dev in ("cpu", device):
-        m = build_detector(cfg, device="cpu", train=True)
-        m.load_state_dict(state)
-        t0 = time.perf_counter()
-        metrics = Trainer(cfg, m, device=dev).run_step(batch, draws=replay.on(dev))
-        res[dev] = {**{k: float(v) for k, v in metrics.items()}, **grad_norms(m)}
-        log(f"{what} on {dev}: {time.perf_counter() - t0:.1f} s")
-    cpu, gpu = res["cpu"], res[device]
+    res = {dev: small_train_step(cfg, state, batch, replay.on(dev), dev, what)
+           for dev in ("cpu", device)}
+    cpu, gpu = res["cpu"][0], res[device][0]
     discrete = [k for k in cpu if k == "num_pos_rois" or k.startswith("rcnn_acc")]
     worst = {}
     for k, r in cpu.items():
@@ -1738,6 +1762,7 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
     for k, rel in worst.items():
         if rel > (1e-3 if "norm" in k else 1e-4):
             fail(f"{what}: {k} differs by {rel:.2e} relative between card and CPU")
+    return cfg, state, batch, replay, res[device]
 
 
 def train_stage_breakdown(trainer, batch, reps: int) -> dict:
@@ -1795,11 +1820,11 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
 
 
 def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str | None,
-                trace_name: str) -> dict:
+                trace_name: str) -> tuple:
     """``TRAIN_WARMUP`` warm-up steps and ``TRAIN_STEPS`` timed ones, every
     launch count set to 0 just before the timed steps and read just after;
     fails if a counted kernel was never launched or the step is not finite.
-    Returns the launches."""
+    Returns the launches, the median ms per step and the peak GiB."""
     import os
 
     import torch
@@ -1829,11 +1854,11 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
     if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
         fail(f"{what}: loss {float(m['loss'])}, grad norm {float(m['grad_norm'])}")
     q = torch.tensor(times).quantile(torch.tensor([0.25, 0.5, 0.75])).tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{what} ms per step ({card}): " + ", ".join(f"{ms:.2f}" for ms in times))
     log(f"{what}: {TRAIN_STEPS} steps of {MAIN_BATCH}x832x1344 bf16, ms per step: "
         f"p25 {q[0]:.2f}, median {q[1]:.2f}, p75 {q[2]:.2f}, max {max(times):.2f}; "
-        f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+        f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s; peak memory {peak:.2f} GiB ({card})")
     log(f"{what}: losses {', '.join(f'{x:.4f}' for x in losses)}; last step "
         + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(m.items()))
         + f"; launches per step {({k: n / TRAIN_STEPS for k, n in launches.items()})}")
@@ -1844,11 +1869,11 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
             log(f"profile {what} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
         trace(lambda: trainer.run_step(batch), 2, f"{what} step",
               os.path.join(profile_dir, trace_name))
-    return launches
+    return launches, q[1], peak
 
 
 def phase_train_path(device, card: str, counters, profile_dir: str | None,
-                     capture: CaptureRoiBwd, nms_capture: CaptureNms) -> dict:
+                     capture: CaptureRoiBwd, nms_capture: CaptureNms) -> tuple:
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -2243,13 +2268,145 @@ def phase_cascade_train_path(device, card: str, counters, profile_dir: str | Non
     log(f"cascade train path: f32 master weights, {cfg.backbone.dtype} compute, "
         f"{len(dcn_layers(trainer.model))} DCN layers, offset convs seeded as above")
     batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
-    launches = drive_train(trainer, batch, counters, card, "cascade train path", profile_dir,
-                           "cascade_train_trace.json.gz")
+    launches, _, _ = drive_train(trainer, batch, counters, card, "cascade train path",
+                                 profile_dir, "cascade_train_trace.json.gz")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     want = {"deform_conv": 27, "deform_conv_s2": 3, "deform_wgrad_doffsets": 27,
             "deform_wgrad_doffsets_s2": 3, "deform_col2im": 27, "deform_col2im_s2": 3}
     if any(per_step.get(k) != v for k, v in want.items()):
         fail(f"cascade train path: expected {want} launches a step, got {per_step}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 12: the SyncBN data-parallel training path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_remat(device, cfg, state, batch, replay, plain: tuple) -> None:
+    """The small card step of ``small_train_parity`` again with
+    ``backbone.remat``: the same losses and grad norms within 1e-5
+    relative, and the same running statistics (within 1e-6 of their
+    largest value): the recompute must not move them a second time."""
+    res, stats = small_train_step(cfg.override(**{"backbone.remat": True}), state, batch,
+                                  replay.on(device), device, "small f32 SyncBN step, remat")
+    ref, ref_stats = plain
+    if set(res) != set(ref) or set(stats) != set(ref_stats):
+        fail("small SyncBN step with remat: other metrics or statistics than without")
+    worst = max(abs(res[k] - r) / max(abs(r), 1e-12) for k, r in ref.items())
+    stat_gap = max(float((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
+                   for k, v in ref_stats.items())
+    log(f"small SyncBN step with remat against without, on the card: metrics and grad norms "
+        f"within {worst:.2e} relative, running statistics within {stat_gap:.2e} of their "
+        f"largest value (bounds 1e-5, 1e-6)")
+    if worst > 1e-5 or stat_gap > 1e-6:
+        fail("small SyncBN step: remat changed the step")
+
+
+def check_checkpoint(cfg, trainer, batch, device, steps_per_epoch: int) -> None:
+    """Save after step 1, run step 2; restore into a fresh ``Trainer``
+    (other weights) and run step 2 again: the metrics within 1e-6 relative
+    (cuDNN's backward need not be deterministic)."""
+    import os
+    import tempfile
+
+    from mxdetection_tpu_torch.train.checkpoint import CheckpointManager
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        trainer.run_step(batch)
+        t0 = time.perf_counter()
+        ckpt.save(trainer)
+        save_s = time.perf_counter() - t0
+        ref = {k: float(v) for k, v in trainer.run_step(batch).items()}
+        fresh = Trainer(cfg, device=device, seed=1, steps_per_epoch=steps_per_epoch)
+        t0 = time.perf_counter()
+        step = ckpt.restore(fresh)
+        restore_s = time.perf_counter() - t0
+        got = {k: float(v) for k, v in fresh.run_step(batch).items()}
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    worst = max(abs(got[k] - r) / max(abs(r), 1e-12) for k, r in ref.items())
+    log(f"sync_bn train path: checkpoint of step {step} ({size / 2**20:.1f} MiB, saved in "
+        f"{save_s:.2f} s, restored in {restore_s:.2f} s); step 2 resumed in a fresh Trainer "
+        f"against the original: within {worst:.2e} relative (bound 1e-6)")
+    if step != 1 or set(got) != set(ref) or worst > 1e-6:
+        fail(f"sync_bn train path: the resumed step differs by {worst:.2e} relative")
+
+
+def phase_sync_bn_train_path(device, card: str, counters, profile_dir: str | None,
+                             faster: tuple) -> dict:
+    """``multihost_dp_faster_rcnn_v5p16``: SyncBN in every backbone norm,
+    every stage training, the data-parallel ``Trainer`` in a NCCL process
+    group of world size 1. A card-vs-CPU f32 step at 256x320 and the same
+    step with remat; then at 8x832x1344 in bf16 a checkpoint round trip,
+    ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` steps beside the Faster step's
+    ``faster`` (median ms, peak GiB), and the peak memory with remat."""
+    import torch
+    import torch.distributed as dist
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.layers import SyncBatchNorm
+    from mxdetection_tpu_torch.parallel.mesh import initialize_multihost
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    check_remat(device, *small_train_parity(device, SYNC, what="small f32 SyncBN train step"))
+
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)
+        if float(one) != 1.0:
+            fail(f"NCCL all_reduce at world size 1 gave {float(one)}")
+        log(f"sync_bn train path: {dist.get_backend()} process group of "
+            f"{dist.get_world_size()}")
+        cfg = load_config(SYNC, {"data.batch_size_per_device": MAIN_BATCH})
+        steps_per_epoch = 117266 // MAIN_BATCH
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=device, seed=0, steps_per_epoch=steps_per_epoch)
+        norms = [m for m in trainer.model.modules() if isinstance(m, SyncBatchNorm)]
+        log(f"sync_bn train path: {cfg.name}, {len(norms)} SyncBN layers, frozen_stages "
+            f"{cfg.backbone.frozen_stages}, {trainer.replicas} replica, f32 master weights, "
+            f"{cfg.backbone.dtype} compute, seeded init in {time.perf_counter() - t0:.1f} s")
+        batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
+        check_checkpoint(cfg, trainer, batch, device, steps_per_epoch)
+        launches, median, peak = drive_train(trainer, batch, counters, card, "sync_bn train path",
+                                             profile_dir, "sync_bn_train_trace.json.gz")
+        stats = torch.cat([torch.cat([m.mean, m.var]) for m in norms])
+        moved = sum(bool((m.mean != 0).any() and (m.var != 1).any()) for m in norms)
+        if not torch.isfinite(stats).all() or moved != len(norms):
+            fail(f"sync_bn train path: running statistics finite "
+                 f"{bool(torch.isfinite(stats).all())}, moved in {moved} of {len(norms)} layers")
+        log(f"sync_bn train path: running statistics finite and moved in all {len(norms)} "
+            f"layers; median {median:.2f} ms a step against the Faster step's {faster[0]:.2f} "
+            f"ms, peak {peak:.2f} GiB against {faster[1]:.2f} GiB, in this run ({card})")
+        del trainer
+        torch.cuda.empty_cache()
+        remat = Trainer(cfg.override(**{"backbone.remat": True}), device=device, seed=0,
+                        steps_per_epoch=steps_per_epoch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = remat.run_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(m["loss"]):
+            fail(f"sync_bn train path with remat: loss {float(m['loss'])}")
+        log(f"sync_bn train path with backbone.remat: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against {peak:.2f} GiB "
+            f"without; steps 1-3 ms {', '.join(f'{t:.2f}' for t in times)} ({card})")
+        del remat
+    finally:
+        dist.destroy_process_group()
     return launches
 
 
@@ -2304,7 +2461,7 @@ def main() -> int:
         roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count], args.profile)
     capture = CaptureRoiBwd()
-    paths["train"] = phase_train_path(device, card, [
+    paths["train"], faster_ms, faster_peak = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
         iou_cuda.pass_b_count], args.profile, capture, nms_train)
@@ -2331,6 +2488,10 @@ def main() -> int:
         dcn_cuda.s2_launch_count, dcn_cuda.wgrad_launch_count,
         dcn_cuda.wgrad_s2_launch_count, dcn_cuda.col2im_launch_count,
         dcn_cuda.col2im_s2_launch_count], args.profile)
+    paths["sync_bn_train"] = phase_sync_bn_train_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
+        iou_cuda.pass_b_count], args.profile, (faster_ms, faster_peak))
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res

@@ -16,21 +16,29 @@ puts ``stop_gradient``, after the stem's ReLU (when ``frozen_stages >= 0``)
 and after every stage up to ``frozen_stages`` (so with the default 1, C2
 itself is detached). The frozen weights stay parameters and get no
 gradient; the trainer still decays them, as optax does in the reference.
-The JAX module's ``train`` flag only switches SyncBN to batch statistics;
-FrozenBN, the one norm ported, is the same in training and evaluation, so
-this module has no such flag until SyncBN comes (ROADMAP Queue 1 item 10).
+
+Norms (``norm_kind``, ``layers.make_norm``) sit at the stem and at every
+block's ``bn1``-``bn3`` and ``downsample_bn``. The JAX module's ``train``
+flag, which switches SyncBN to batch statistics, is the module's train/eval
+mode here. ``remat`` recomputes each bottleneck in the backward
+(``torch.utils.checkpoint``, as ``nn.remat(Bottleneck)``) in train mode; the
+recompute leaves SyncBN's running statistics alone, so they move once a
+step, as flax's ``batch_stats`` come from the forward pass alone.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.dcn import deform_conv2d_batched
-from ..layers import Conv2d, FrozenBatchNorm, conv, he_normal_, init_layer_
+from ..layers import (Conv2d, FrozenBatchNorm, SyncBatchNorm, conv, he_normal_, init_layer_,
+                      make_norm)
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -75,20 +83,20 @@ class Bottleneck(nn.Module):
     is a ``DeformConv`` with ``use_dcn``."""
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 use_dcn: bool = False):
+                 use_dcn: bool = False, norm: Callable[[int], nn.Module] = FrozenBatchNorm):
         super().__init__()
         out = channels * 4
         self.conv1 = conv(in_channels, channels, 1)
-        self.bn1 = FrozenBatchNorm(channels)
+        self.bn1 = norm(channels)
         self.conv2 = (DeformConv(channels, channels, stride) if use_dcn
                       else conv(channels, channels, 3, stride))
-        self.bn2 = FrozenBatchNorm(channels)
+        self.bn2 = norm(channels)
         self.conv3 = conv(channels, out, 1)
-        self.bn3 = FrozenBatchNorm(out)
+        self.bn3 = norm(out)
         # the JAX block projects when the residual's shape differs from the output's
         if stride != 1 or in_channels != out:
             self.downsample_conv = conv(in_channels, out, 1, stride)
-            self.downsample_bn = FrozenBatchNorm(out)
+            self.downsample_bn = norm(out)
         else:
             self.downsample_conv = None
 
@@ -102,6 +110,20 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
+@contextlib.contextmanager
+def _recomputing(block: nn.Module):
+    """While a checkpointed block recomputes its forward: SyncBN's running
+    statistics stay as the forward pass left them."""
+    norms = [m for m in block.modules() if isinstance(m, SyncBatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
 class ResNet(nn.Module):
     """(B, H, W, 3) NHWC image -> (C2, C3, C4, C5) NHWC maps at strides 4..32."""
 
@@ -109,18 +131,14 @@ class ResNet(nn.Module):
                  dcn_stages: Sequence[bool] = (False, False, False, False),
                  s2d_stem: bool = False, dilated_c5: bool = False, remat: bool = False):
         super().__init__()
-        if norm_kind != "frozen_bn":
-            raise NotImplementedError(f"backbone norm {norm_kind!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 10: SyncBN)")
         if s2d_stem:
             raise NotImplementedError("the space-to-depth stem is a TPU measure and is not ported")
         if dilated_c5:
             raise NotImplementedError("dilated C5 is not ported yet (ROADMAP Queue 1 item 14: R-FCN)")
-        if remat:
-            raise NotImplementedError("backbone.remat is not ported yet (ROADMAP Queue 1 item 10)")
-        self.frozen_stages = frozen_stages
+        self.frozen_stages, self.remat = frozen_stages, remat
+        norm = make_norm(norm_kind)
         self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.stem_bn = FrozenBatchNorm(64)
+        self.stem_bn = norm(64)
         in_ch = 64
         self.block_names = []
         for stage, (n_blocks, width) in enumerate(zip(STAGE_BLOCKS[depth], (64, 128, 256, 512))):
@@ -129,15 +147,15 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 name = f"layer{stage + 1}_block{b}"
                 self.add_module(name, Bottleneck(in_ch, width, stride,
-                                                 use_dcn=bool(dcn_stages[stage])))
+                                                 use_dcn=bool(dcn_stages[stage]), norm=norm))
                 in_ch = width * 4
                 names.append(name)
             self.block_names.append(names)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """he_normal for every conv, as flax (a DeformConv's offset conv
-        zero, as the JAX layer's); FrozenBN identity except the
-        last BN of each block, whose gamma is 1/sqrt(number of blocks), so
+        zero, as the JAX layer's); every norm identity except the
+        last of each block, whose gamma is 1/sqrt(number of blocks), so
         the variance of the residual sum grows by a bounded factor over the
         whole network instead of doubling at every block.
 
@@ -156,9 +174,10 @@ class ResNet(nn.Module):
             if isinstance(m, DeformConv):
                 m.reset_parameters(gen)
         gamma = len(sum(self.block_names, [])) ** -0.5
-        for names in self.block_names:
-            for name in names:
-                getattr(self, name).bn3.gamma.fill_(gamma)
+        with torch.no_grad():  # SyncBN's and GroupNorm's gamma is a parameter
+            for names in self.block_names:
+                for name in names:
+                    getattr(self, name).bn3.gamma.fill_(gamma)
 
     def forward(self, images: torch.Tensor) -> tuple:
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory == channels_last
@@ -167,9 +186,15 @@ class ResNet(nn.Module):
             x = x.detach()
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf, as flax does
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage, names in enumerate(self.block_names):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if remat:
+                    x = checkpoint(block, x, use_reentrant=False, context_fn=lambda b=block: (
+                        contextlib.nullcontext(), _recomputing(b)))
+                else:
+                    x = block(x)
             if stage + 1 <= self.frozen_stages:
                 x = x.detach()
             outs.append(x.permute(0, 2, 3, 1))

@@ -1,4 +1,5 @@
-"""Shared NN building blocks — port of ``mxdetection_tpu.models.layers``.
+"""Shared NN building blocks — port of ``mxdetection_tpu.models.layers``:
+the norms (FrozenBN, SyncBN, GroupNorm), convs and the seeded initialisers.
 
 Modules of the port take and return NCHW tensors in ``channels_last`` memory
 inside the network (so every NHWC view is contiguous for free); the public
@@ -17,10 +18,14 @@ scale 2), ``xavier_uniform`` and ``normal(std)``, drawn from a
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import world_size
 
 # flax's truncated-normal initialisers divide the std by the std of a
 # standard normal truncated to [-2, 2], so the drawn values keep the variance
@@ -47,6 +52,102 @@ class FrozenBatchNorm(nn.Module):
         bias = self.beta.float() - self.mean.float() * scale
         shape = (1, -1, 1, 1)
         return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+
+
+class SyncBatchNorm(nn.Module):
+    """Cross-replica BatchNorm with the JAX layer's semantics, which are not
+    ``torch.nn.SyncBatchNorm``'s.
+
+    Train mode: ``mean = E[x]`` and ``mean2 = E[x^2]`` over (B, H, W) in f32;
+    with ``sync`` and a process group of more than one replica both are
+    averaged over the replicas (the unweighted mean of the per-replica
+    means, as ``lax.pmean``: the replicas must hold equal local batches, which
+    ``Trainer`` checks); ``var = max(mean2 - mean^2, 0)``, biased; the running
+    statistics move as ``ra = 0.9 ra + 0.1 batch``. Without a group, or at
+    world size 1, it is plain train-mode BN over the local batch, as the JAX
+    layer outside a mapped context. Eval mode reads the running statistics.
+
+    The average is ``torch.distributed.nn.functional.all_reduce``, whose
+    backward sums the replicas' cotangents as the transpose of ``pmean``
+    does: once the trainer averages the gradients, each replica's dx is the
+    gradient of the mean loss. ``gamma``/``beta`` are f32 parameters (the
+    optimizer decays them, as optax does); ``mean``/``var`` are buffers.
+    ``update_stats=False`` (set while a remat'd block recomputes its forward)
+    leaves the running statistics alone, so they move once a step.
+    """
+
+    def __init__(self, channels: int, momentum: float = 0.9, epsilon: float = 1e-5,
+                 sync: bool = True):
+        super().__init__()
+        self.momentum, self.epsilon, self.sync = momentum, epsilon, sync
+        self.update_stats = True
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: (B, C, H, W)
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            xf = x.float()
+            stats = torch.stack([xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))])
+            n = world_size() if self.sync else 1
+            if n > 1:
+                stats = dist_nn.all_reduce(stats) / n
+            mean, mean2 = stats[0], stats[1]
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
+        scale = self.gamma * torch.rsqrt(var + self.epsilon)
+        bias = self.beta - mean * scale
+        shape = (1, -1, 1, 1)
+        return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups)``: statistics per (image, group) over
+    (H, W, C/G) in f32 with the fast variance ``max(E[x^2] - E[x]^2, 0)``,
+    ``(x - mean) * (rsqrt(var + eps) * gamma) + beta`` in f32, cast to x's
+    dtype. ``gamma``/``beta`` are f32 parameters (flax's ``scale``/``bias``)."""
+
+    def __init__(self, channels: int, num_groups: int = 32, epsilon: float = 1e-5):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {channels} channels")
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: (B, C, H, W)
+        b, c = x.shape[:2]
+        xg = x.float().reshape(b, self.num_groups, -1)
+        mean = xg.mean(-1)
+        var = torch.clamp(xg.square().mean(-1) - mean.square(), min=0.0)
+        mean = mean.repeat_interleave(c // self.num_groups, 1).view(b, c, 1, 1)
+        var = var.repeat_interleave(c // self.num_groups, 1).view(b, c, 1, 1)
+        mul = torch.rsqrt(var + self.epsilon) * self.gamma.view(1, c, 1, 1)
+        return ((x - mean) * mul + self.beta.view(1, c, 1, 1)).to(x.dtype)
+
+
+NORMS = (FrozenBatchNorm, SyncBatchNorm, GroupNorm)
+
+
+def make_norm(kind: str) -> Callable[[int], nn.Module]:
+    """Norm factory keyed by the config string, ``channels -> module``. The
+    JAX factory's ``train`` flag is the module's train/eval mode here."""
+    if kind == "frozen_bn":
+        return FrozenBatchNorm
+    if kind == "sync_bn":
+        return SyncBatchNorm
+    if kind == "bn":
+        return lambda channels: SyncBatchNorm(channels, sync=False)
+    if kind == "gn":
+        return GroupNorm
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 class Conv2d(nn.Conv2d):

@@ -1,6 +1,6 @@
 """Detector registry — port of ``mxdetection_tpu.models.registry`` for the
-detectors ported so far: Faster R-CNN and Cascade R-CNN with deformable
-convs, inference and training."""
+detectors ported so far: Faster R-CNN (frozen BN or SyncBN) and Cascade
+R-CNN with deformable convs, inference and training."""
 
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
 
     ``train=False``: an eval-mode model whose parameters are stored in the
     compute dtype, but for the deformable convs' offset convs, which stay
-    f32 as the JAX layer's (sample positions depend on them).
+    f32 as the JAX layer's (sample positions depend on them), and the
+    norms' ``gamma``/``beta``, which stay f32 as the JAX layers form the
+    scale in f32 and cast only the result.
     ``train=True``: a train-mode model whose parameters all stay f32 master
     weights, cast to the compute dtype where they are read, as flax's
     ``param_dtype=float32, dtype=bfloat16`` (the offset convs compute in
@@ -38,6 +40,7 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
                                   "(ROADMAP Queue 1 items 11-14)")
     from .backbones.resnet import DeformConv
     from .detectors.rcnn import RCNN
+    from .layers import NORMS
 
     device = require_device(device)
     model = RCNN(cfg)
@@ -45,9 +48,10 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
         model.reset_parameters(torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last).train(train)
     if not train:
-        keep_f32 = {id(p) for m in model.modules() if isinstance(m, DeformConv)
-                    for p in m.offset_conv.parameters()}
-        for p in model.parameters():  # FrozenBN statistics stay f32 buffers, as in JAX
+        keep_f32 = {id(p) for m in model.modules()
+                    for p in (m.offset_conv.parameters() if isinstance(m, DeformConv) else
+                              m.parameters() if isinstance(m, NORMS) else ())}
+        for p in model.parameters():  # norm statistics stay f32 buffers, as in JAX
             if id(p) not in keep_f32:
                 p.data = p.data.to(model.compute_dtype)
     return model

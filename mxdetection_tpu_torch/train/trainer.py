@@ -1,15 +1,22 @@
-"""One training step on one device — port of ``mxdetection_tpu.train.trainer``.
+"""One data-parallel training step — port of ``mxdetection_tpu.train.trainer``.
 
-``Trainer.run_step`` does what the JAX package's jitted step does, eagerly:
-raw uint8 batch -> ``batch_transform`` (on the canvas of the batch's
-orientation) -> ``sanitize_gt`` -> ``forward_train`` -> ``rcnn_loss`` ->
-backward -> the optimizer update. The optimizer is written out to match the
-optax chain ``clip_by_global_norm -> add_decayed_weights -> sgd(momentum)``
+``Trainer.run_step`` does what the JAX package's jitted ``shard_map`` step
+does, eagerly, on each replica (one process per device): raw uint8 batch ->
+``batch_transform`` (on the canvas of the batch's orientation) ->
+``sanitize_gt`` -> ``forward_train`` -> ``rcnn_loss`` -> backward -> the
+gradients, metrics and loss averaged over the replicas -> the optimizer
+update. The optimizer is written out to match the optax chain
+``clip_by_global_norm -> add_decayed_weights -> sgd(momentum)``
 (``make_optimizer``): torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``
 and ``torch.optim.SGD`` decays and steps in another order.
 
-Data parallelism, SyncBN and checkpoints are ROADMAP Queue 1 item 10; the
-epoch loop ``fit_epochs`` waits for the data loader (item 15).
+The replicas are the ``torch.distributed`` process group
+(``parallel/mesh.py``); without one the step is single-device. The average
+is one ``all_reduce`` of a flat f32 buffer, not ``DistributedDataParallel``:
+with ``frozen_stages >= 0`` the frozen stem and stages get no gradient,
+which DDP takes only with ``find_unused_parameters``, and the JAX step
+reduces after the whole backward too. Checkpoints are ``checkpoint.py``; the
+epoch loop ``fit_epochs`` waits for the data loader (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -18,12 +25,14 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.transforms import batch_transform
 from ..models.detectors.rcnn import rcnn_loss
 from ..models.registry import build_detector, require_device
 from ..ops.matching import Draws, TorchDraws
+from ..parallel.mesh import data_parallel_size
 from .schedule import warmup_multistep
 
 
@@ -85,14 +94,18 @@ def sanitize_gt(tb: dict, min_size: float = 1.0) -> dict:
 
 
 class Trainer:
-    """Single-device trainer of a Faster or Cascade R-CNN
-    (``build_detector(train=True)``).
+    """Data-parallel trainer of a Faster or Cascade R-CNN
+    (``build_detector(train=True)``), one replica per process.
 
     ``model=None`` builds one from ``cfg`` on ``device`` with seeded
     weights (``seed``); a given model is moved to ``device``. The device is
-    the card unless the caller asks for the CPU. The samplers' random draws
-    come from a ``torch.Generator`` on the device seeded with
-    ``cfg.train.seed``, unless ``run_step`` is handed another source.
+    the card unless the caller asks for the CPU. In a process group of more
+    than one replica (``parallel.mesh.initialize_multihost``), rank 0's
+    parameters and buffers are broadcast at construction, and
+    ``cfg.train.mesh_shape`` must resolve to the group's size. The samplers'
+    random draws come from a ``torch.Generator`` on the device seeded with
+    ``cfg.train.seed`` on every rank, as every replica of the JAX step draws
+    from the one replicated key, unless ``run_step`` is handed another source.
     """
 
     def __init__(self, cfg: Config, model: torch.nn.Module | None = None, *,
@@ -103,6 +116,11 @@ class Trainer:
             model = build_detector(cfg, device=self.device, seed=seed, train=True)
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
+        self.replicas = data_parallel_size(cfg.train.mesh_shape)
+        if self.replicas > 1:
+            with torch.no_grad():
+                for t in [*self.params, *self.model.buffers()]:
+                    dist.broadcast(t, src=0)
         self.optimizer, self.lr_fn = make_optimizer(cfg, self.params, steps_per_epoch)
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.draws = TorchDraws(gen)
@@ -123,12 +141,16 @@ class Trainer:
         return sanitize_gt(tb)
 
     def run_step(self, batch: dict, draws: Draws | None = None) -> dict:
-        """One update from a raw batch: raw (B, h, w, 3) uint8, hw (B, 2),
-        flip (B,), gt_boxes (B, G, 4), gt_labels (B, G), gt_valid (B, G),
-        optionally portrait and scale_size (B,). Returns the metrics as 0-d
-        tensors on the device (no host sync): the loss terms, ``loss`` and
-        ``grad_norm``, the global gradient norm before clipping."""
+        """One update from this replica's rows of the global batch: raw
+        (B, h, w, 3) uint8, hw (B, 2), flip (B,), gt_boxes (B, G, 4),
+        gt_labels (B, G), gt_valid (B, G), optionally portrait and
+        scale_size (B,); every replica holds the same B. Returns the metrics
+        averaged over the replicas as 0-d tensors on the device (no host
+        sync on one replica): the loss terms, ``loss`` and ``grad_norm``,
+        the global norm of the averaged gradient before clipping."""
         draws = self.draws if draws is None else draws
+        if self.replicas > 1:
+            self._check_equal_local_batches(len(batch["raw"]))
         tb = self.device_batch(batch)
         for p in self.params:
             p.grad = None
@@ -137,5 +159,33 @@ class Trainer:
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = self.optimizer.step([p.grad for p in self.params])
+        grads = [p.grad for p in self.params]
+        if self.replicas > 1:
+            grads, metrics = self._average(grads, metrics)
+        metrics["grad_norm"] = self.optimizer.step(grads)
         return metrics
+
+    def _check_equal_local_batches(self, b: int) -> None:
+        """SyncBN's average and the gradients' are unweighted means over the
+        replicas, as ``pmean``: they need equal local batches."""
+        t = torch.tensor([b, -b], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        if int(t[0]) != -int(t[1]):
+            raise ValueError(f"local batches of {-int(t[1])} to {int(t[0])} images: "
+                             "every replica must hold the same number")
+
+    def _average(self, grads: list, metrics: dict) -> tuple:
+        """The JAX step's ``pmean(grads)``, ``pmean(metrics)``, ``pmean(loss)``
+        in one all-reduce (sum, then divide: gloo has no average) of a flat
+        f32 buffer; a parameter without a gradient contributes zeros."""
+        parts = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        names = sorted(metrics)
+        flat = torch.cat([t.reshape(-1).float() for t in parts]
+                         + [torch.stack([metrics[k].float() for k in names])])
+        dist.all_reduce(flat)
+        flat /= self.replicas
+        out, i = [], 0
+        for p in self.params:
+            out.append(flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
+        return out, dict(zip(names, flat[i:].unbind()))

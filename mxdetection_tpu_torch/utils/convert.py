@@ -11,7 +11,11 @@ at ``backbone.layer1_block0.conv1.weight``:
   ``bbox_head0/fc1`` flattened channels-last, (7, 7, 256) in HWC order, in
   both frameworks, so its rows need no permutation;
 - FrozenBN ``gamma/beta/mean/var`` (``batch_stats``) -> buffers of the same
-  names.
+  names;
+- SyncBN ``gamma/beta`` (``params``, rank 1) -> its parameters of the same
+  names, and its ``mean/var`` (``batch_stats``) -> its buffers;
+- GroupNorm's ``GroupNorm_0/scale`` and ``GroupNorm_0/bias`` (the flax
+  module inside the JAX wrapper) -> the port's ``gamma`` and ``beta``.
 
 The flax train-mode and eval-mode detectors share one variable tree, so the
 same conversion loads a training model (``build_detector(train=True)``,
@@ -40,8 +44,13 @@ def flax_to_state_dict(variables: dict) -> dict:
     sd = {}
     for name, arr in _flatten(variables.get("params", {})).items():
         prefix, leaf = name.rpartition(".")[::2]
+        head, _, last = prefix.rpartition(".")
+        if last == "GroupNorm_0" and leaf in ("scale", "bias"):
+            prefix, leaf = head, {"scale": "gamma", "bias": "beta"}[leaf]
         prefix = prefix + "." if prefix else ""
-        if leaf == "kernel" and arr.ndim == 4:
+        if leaf in ("gamma", "beta") and arr.ndim == 1:
+            sd[prefix + leaf] = arr
+        elif leaf == "kernel" and arr.ndim == 4:
             sd[prefix + "weight"] = arr.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and arr.ndim == 2:
             sd[prefix + "weight"] = arr.T

@@ -14,6 +14,7 @@ anchors in the kernel sources.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +26,9 @@ from mxdetection_tpu_torch.ops import matching as tmatch
 from mxdetection_tpu_torch.ops.cuda import k1_variants, k2_variants, k4_variants
 from mxdetection_tpu_torch.ops.cuda.build import CSRC_DIR
 from mxdetection_tpu_torch.ops.cuda.variants import copy_with_edits
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 def T(x):

@@ -39,7 +39,8 @@ from mxdetection_tpu_torch.ops.cuda import deform_conv as cuda_dcn
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
 
 from test_torch_port_dcn import CASCADE, CASCADE_OFFSET_NOISE, dcn_inputs, noisy_offsets
-from test_torch_port_train import N, T, _grad_norm, jax_draws, random_boxes
+from test_torch_port_train import (  # noqa: F401  (fixtures)
+    N, T, _grad_norm, default_torch_threads, jax_draws, one_torch_thread, random_boxes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -357,7 +358,7 @@ LIVE_IOU_THRS = (0.5, 0.4, 0.3)
 LIVE_DELTA_SCALE = 0.01
 
 
-def test_cascade_train_step_matches_live_jax(cascade_train):
+def test_cascade_train_step_matches_live_jax(cascade_train, default_torch_threads):
     """``value_and_grad`` of the JAX train step, run live, with a noisy
     offset conv in the first stage-4 DCN (offsets of std 4.5 cells, many
     corners off the map), ``cascade.stage_iou_thrs`` lowered and the

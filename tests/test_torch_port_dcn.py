@@ -39,6 +39,9 @@ from mxdetection_tpu_torch.ops.cuda import k5_variants
 from mxdetection_tpu_torch.ops.matching import TorchDraws
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
+
 from test_torch_port_detector import N, T, assert_rel_close, init_flax, nchw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -16,6 +16,7 @@ window against the built kernel's).
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,9 @@ from mxdetection_tpu_torch.ops import dcn as tdcn
 from mxdetection_tpu_torch.ops.cuda import build
 from mxdetection_tpu_torch.ops.cuda import deform_conv as cuda_dcn
 from mxdetection_tpu_torch.ops.cuda import k7_variants
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 SHAPES = {1: (11, 21), 2: (19, 37)}  # input H, W: several ragged tiles at each stride
 

@@ -17,6 +17,7 @@ partition against the built kernel's).
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,9 @@ from mxdetection_tpu_torch.ops import dcn as tdcn
 from mxdetection_tpu_torch.ops.cuda import build
 from mxdetection_tpu_torch.ops.cuda import deform_conv as cuda_dcn
 from mxdetection_tpu_torch.ops.cuda import k6_variants
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 def wgrad_case(seed, b, h, w, c, cout, stride, std=2.0):

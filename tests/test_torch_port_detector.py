@@ -33,6 +33,9 @@ from mxdetection_tpu_torch.models.necks.fpn import FPN
 from mxdetection_tpu_torch.models.registry import build_detector
 from mxdetection_tpu_torch.utils.convert import load_flax_variables
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = jnp.float32
 
@@ -223,12 +226,13 @@ def test_build_detector_rejects_unported():
             build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")), device="cpu")
 
 
-def test_port_runs_without_jax():
-    """The port imports and runs a tiny seeded forward, one training step,
-    and a tiny cascade forward and training step (DCN in stage 4, so the
-    deformable conv's backward runs) with jax, flax, optax and the JAX
-    package blocked: the card's machine has no jax, and the port keeps its
-    own configs."""
+def test_port_runs_without_jax(tmp_path):
+    """The port imports and runs a tiny seeded forward, one training step
+    (saved and restored by a checkpoint; the parallel helpers
+    single-process), and a tiny cascade forward and training step (DCN in
+    stage 4, so the deformable conv's backward runs) with jax, flax, optax
+    and the JAX package blocked: the card's machine has no jax, and the port
+    keeps its own configs."""
     script = textwrap.dedent("""
         import sys
         for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
@@ -240,6 +244,9 @@ def test_port_runs_without_jax():
         from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
         from mxdetection_tpu_torch.models.registry import build_detector
         from mxdetection_tpu_torch.ops.cuda import build, deform_conv, iou, nms, roi_align
+        from mxdetection_tpu_torch.parallel.dist import all_gather_objects
+        from mxdetection_tpu_torch.parallel.mesh import data_parallel_size, initialize_multihost
+        from mxdetection_tpu_torch.train.checkpoint import CheckpointManager
         from mxdetection_tpu_torch.train.trainer import Trainer
         from mxdetection_tpu_torch.utils import convert
 
@@ -263,11 +270,16 @@ def test_port_runs_without_jax():
         assert torch.isfinite(dets["boxes"]).all()
         assert int(dets["valid"].sum()) > 0
         gtb = torch.tensor([[[10.0, 10.0, 60.0, 50.0]] * 3] * 2)
-        m = Trainer(cfg, device="cpu", seed=0).run_step({
+        trainer = Trainer(cfg, device="cpu", seed=0)
+        m = trainer.run_step({
             "raw": raw, "hw": hw, "flip": torch.tensor([False, True]), "gt_boxes": gtb,
             "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
             "gt_valid": torch.tensor([[True, False, False]] * 2)})
         assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        initialize_multihost()
+        assert all_gather_objects(1) == [1] and data_parallel_size((-1, 1)) == 1
+        ckpt = CheckpointManager(sys.argv[1])
+        assert ckpt.save(trainer) and ckpt.restore(trainer) == 1
         casc = load_config("cascade_rcnn_r101_dcn_1x").override(**{
             "data.pad_h": 128, "data.pad_w": 160, "data.scale": 120, "data.max_size": 160,
             "backbone.depth": 50, "backbone.dtype": "float32",
@@ -296,8 +308,9 @@ def test_port_runs_without_jax():
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", int(dets["valid"].sum()))
     """)
-    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
-                         text=True, env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
+    res = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("ok")
 
@@ -320,6 +333,9 @@ def test_imports_stay_in_the_port(path):
     files = ([root] if root.endswith(".py") else
              [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")])
     assert len(files) > 1 or path.endswith(".py")
+    if path == "mxdetection_tpu_torch":
+        names = {os.path.relpath(f, root) for f in files}
+        assert {"parallel/mesh.py", "parallel/dist.py", "train/checkpoint.py"} <= names
     for f in files:
         for mod in imported_modules(f):
             top = mod.split(".")[0]

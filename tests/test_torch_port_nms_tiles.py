@@ -16,6 +16,7 @@ the source, and the split tool's edits must find their launches.
 
 import os
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,9 @@ from mxdetection_tpu_torch.ops import boxes as tbox
 from mxdetection_tpu_torch.ops import nms as tnms
 from mxdetection_tpu_torch.ops.cuda import k2_variants
 from mxdetection_tpu_torch.ops.cuda.build import CSRC_DIR
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 NMS_TILE = 64   # rows of a row tile, bits of a mask word (csrc/nms.cu kTile)
 NMS_CHUNK = 32  # word columns the sweep holds at a time (csrc/nms.cu kChunk)

@@ -6,6 +6,9 @@ kernels are held against those on the card by ``chip_smoke.py``). Pallas
 kernels run in interpret mode, as the JAX package's own tests run them.
 """
 
+import os
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,9 @@ from mxdetection_tpu_torch.ops.cuda import nms as cuda_nms
 from mxdetection_tpu_torch.ops.cuda import roi_align as cuda_roi_align
 from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
 from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_cuda
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 def T(x):

@@ -17,6 +17,7 @@ bit for bit and its tile against the model's).
 """
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -29,6 +30,9 @@ from mxdetection_tpu_torch.ops import roi_align as tra
 from mxdetection_tpu_torch.ops.cuda import build
 from mxdetection_tpu_torch.ops.cuda import k3_variants
 from mxdetection_tpu_torch.ops.cuda import roi_align as cra
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_train import one_torch_thread  # noqa: E402,F401  (autouse)
 
 CHUNK = cra.roi_align_bwd_config()["chunk"]
 

@@ -56,6 +56,28 @@ from test_train_fixtures import shrink, synthetic_batch  # noqa: E402
 FLAGSHIP = os.path.join(REPO, "configs/faster_rcnn_r50_fpn_1x.py")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a port test module runs (the port's
+    other test modules import this fixture). The suite runs on several
+    pytest-xdist workers that share the machine's cores: with a thread a
+    core in every worker, torch's threads wait on each other, and a test of
+    a few seconds alone takes minutes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def default_torch_threads(one_torch_thread):
+    """torch's default thread count again, for a test whose bounds were set
+    from results summed in the order of that many threads."""
+    torch.set_num_threads(one_torch_thread)
+    yield
+    torch.set_num_threads(1)
+
+
 def T(x):
     return torch.from_numpy(np.array(x))
 
