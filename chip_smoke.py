@@ -120,7 +120,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    median and peak memory, K1-K4's launch counts rising, SyncBN's running
    statistics finite and moved in every layer, and the peak memory with
    remat; the process group is destroyed before the results;
-13. prints the card's name and power limit, the kernel table as one JSON
+13. drives the Mask R-CNN path (``mask_rcnn_r50_fpn_1x``: R50-FPN, 81
+   classes, a 4 x conv256 mask head with a deconv, 28x28 masks from 14x14
+   RoIAlign): K1 and K3 (with K3b) at P = 14 against their plain versions
+   on 8 x 128 synthetic rois as in 2 and 5, and K3 against its plain model
+   at C = 256, where small rois' bins overflow its shared-memory stage
+   (the pairs read from g are logged); a small f32 input and training step
+   on the card against the CPU as in 6 and 9, mask probabilities within
+   1e-3; at 8x832x1344 in bf16 a warm-up and 20 timed batches of
+   ``forward_test`` + ``rcnn_postprocess`` + ``mask_probs`` (K1 and K2
+   twice a batch) and 2 warm-up and 10 timed steps of ``Trainer.run_step``
+   with a box mask per gt (K1 and K3 twice, K4 three times a step); then K1
+   on the first batch's detections and K1 and K3 on the first step's mask
+   rois, in f32 and bf16, each with its pairs, longest list and the pairs
+   read from g;
+14. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -128,10 +142,12 @@ exits non-zero at once: there is no CPU fallback.
 
 ``python3 chip_smoke.py --profile DIR`` also splits an inference batch of
 each detector and a training step into their stages (CUDA events at the
-module boundaries) and traces each with ``torch.profiler``: kernel time by
+module boundaries; for Mask R-CNN the mask branch's RoIAlign, head, and
+targets and loss) and traces each with ``torch.profiler``: kernel time by
 name, the device's idle share, and Chrome traces written to
-``DIR/main_path_trace.json.gz``, ``DIR/cascade_path_trace.json.gz``,
-``DIR/train_step_trace.json.gz`` and ``DIR/cascade_train_trace.json.gz``.
+``DIR/<path>_trace.json.gz`` (``main_path``, ``cascade_path``,
+``train_step``, ``cascade_train``, ``sync_bn_train``, ``mask_path``,
+``mask_train``).
 ``--k3-rois FILE`` saves phase 5's rois and the training step's to FILE,
 for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE`` and
 ``k1_variants --rois FILE``. ``--k2-boxes FILE`` saves the problems K2 was
@@ -175,6 +191,9 @@ K7_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:345"
 K7B_REPLACES = "mxdetection_tpu/ops/pallas/dcn.py:804"
 CASCADE = "cascade_rcnn_r101_dcn_1x"
 SYNC = "multihost_dp_faster_rcnn_v5p16"
+MASK = "mask_rcnn_r50_fpn_1x"
+MASK_P = 14             # mask_head.roi_output_size
+MASK_ROIS = 128         # the mask branch's rois a training image: the fg quota
 MAIN_BATCH = 8
 TIMED_BATCHES = 20
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -285,17 +304,18 @@ def main_path_rois(batch: int, r: int, gen, device):
     return rois.to(device), valid.to(device)
 
 
-def touched_pixels(shapes, rois, strides, levels, valid) -> int:
-    """Pixels of the pyramid that RoIAlign reads with a nonzero weight for
-    these rois: where the gradient of the plain version, on one channel of
-    ones, is nonzero."""
+def touched_pixels(shapes, rois, strides, levels, valid, p: int = 7) -> int:
+    """Pixels of the pyramid that RoIAlign (P x P bins) reads with a nonzero
+    weight for these rois: where the gradient of the plain version, on one
+    channel of ones, is nonzero."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
 
     b = rois.shape[0]
     ones = [torch.ones((b, h, w, 1), device=rois.device, requires_grad=True) for h, w in shapes]
-    out = ra.multilevel_roi_align_plain(ones, rois, strides, levels, roi_valid=valid)
+    out = ra.multilevel_roi_align_plain(ones, rois, strides, levels, output_size=p,
+                                        roi_valid=valid)
     return sum(int((g != 0).sum()) for g in torch.autograd.grad(out.sum(), ones))
 
 
@@ -331,32 +351,40 @@ def k1_check(got, ref, valid, dtype) -> tuple[bool, float, str]:
 
 def phase_roi_align(device, baseline: str | None = None) -> dict:
     """K1 against its plain version at phase 2's rois (8 x 1000 over P2-P5
-    of 832x1344, C = 256) in f32 and bf16, and at C = 131 (the lanes' loads
-    channel by channel); its ptxas lines (failing on spills); the bytes its
-    taps gather and their time at the L2 copy rate; with ``baseline``, the
-    largest difference from that checkout's kernel on the same inputs."""
+    of 832x1344, C = 256, P = 7) as ``k1_synthetic`` checks them; its ptxas
+    lines (failing on spills); with ``baseline``, the largest difference
+    from that checkout's kernel on the same inputs."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ptxas_facts("roi_align_fwd_kernel", "K1")
+    return k1_synthetic(device, 7, 1000, torch.Generator().manual_seed(1), baseline)
+
+
+def k1_synthetic(device, p: int, r: int, gen, baseline: str | None = None) -> dict:
+    """K1 (P x P bins) against its plain version on 8 x ``r`` synthetic rois
+    over P2-P5 of 832x1344, C = 256, in f32 and bf16, and at C = 131 (the
+    lanes' loads channel by channel); the bytes its taps gather and their
+    time at the L2 copy rate."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
     from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_cuda
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    ptxas_facts("roi_align_fwd_kernel", "K1")
-    gen = torch.Generator().manual_seed(1)
-    b, r, strides = MAIN_BATCH, 1000, (4, 8, 16, 32)
+    b, strides, tag = MAIN_BATCH, (4, 8, 16, 32), f"K1 P={p}"
     rois, valid = main_path_rois(b, r, gen, device)
     levels = ra.roi_levels(rois, 4, min_level=2, canonical_scale=224.0, canonical_level=4)
-    log(f"K1 rois per level: {torch.bincount(levels.flatten().long(), minlength=4).tolist()}")
+    log(f"{tag} rois per level: {torch.bincount(levels.flatten().long(), minlength=4).tolist()}")
     shapes = [(208, 336), (104, 168), (52, 84), (26, 42)]
-    pixels = touched_pixels(shapes, rois, strides, levels, valid)
+    pixels = touched_pixels(shapes, rois, strides, levels, valid, p)
     n_valid = int(valid.sum())
     # bf16: touched pixels read, output written, rois/levels/valid read
-    nbytes = (pixels * 256 * 2 + b * r * 49 * 256 * 2 + b * r * (16 + 4 + 1))
-    bound_ms, bound_by = bound(nbytes, roi_flops(n_valid, 7, 2, 256))
-    gathered = n_valid * 49 * 4 * 4 * 256 * 2
+    nbytes = (pixels * 256 * 2 + b * r * p * p * 256 * 2 + b * r * (16 + 4 + 1))
+    bound_ms, bound_by = bound(nbytes, roi_flops(n_valid, p, 2, 256))
+    gathered = n_valid * p * p * 4 * 4 * 256 * 2
     l2_rate = l2_copy_rate()
-    log(f"K1 bound (bf16): {pixels} pyramid pixels touched, {nbytes / 1e6:.1f} MB moved, "
+    log(f"{tag} bound (bf16): {pixels} pyramid pixels touched, {nbytes / 1e6:.1f} MB moved, "
         f"{bound_ms:.4f} ms, bound by {bound_by}; the taps gather {gathered / 1e9:.3f} GB, "
         f"{gathered / l2_rate * 1e3:.4f} ms at the L2 copy rate ({l2_rate / 1e12:.2f} TB/s "
         "measured)")
@@ -369,19 +397,21 @@ def phase_roi_align(device, baseline: str | None = None) -> dict:
               "l2_copy_tb_s": l2_rate / 1e12}
     for dtype in (torch.float32, torch.bfloat16):
         feats = main_path_pyramid(b, dtype, gen, device)
-        kernel = lambda: roi_align_cuda(feats, rois, strides, levels, roi_valid=valid)
-        plain = lambda: ra.multilevel_roi_align_plain(feats, rois, strides, levels, roi_valid=valid)
+        kernel = lambda: roi_align_cuda(feats, rois, strides, levels, output_size=p,
+                                        roi_valid=valid)
+        plain = lambda: ra.multilevel_roi_align_plain(feats, rois, strides, levels,
+                                                      output_size=p, roi_valid=valid)
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         ok, max_abs, rule = k1_check(got, ref, valid, dtype)
         plain_ms = time_ms(plain, reps=5)
         ms = time_ms(kernel)
         plain_ms = (plain_ms + time_ms(plain, reps=5)) / 2
-        log(f"K1 roi_align {dtype}: max_abs_err {max_abs:.3e} ({rule}: "
+        log(f"{tag} roi_align {dtype}: max_abs_err {max_abs:.3e} ({rule}: "
             f"{'ok' if ok else 'FAILED'}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(B={b}, R={r}, C=256, P2-P5 of 832x1344)")
+            f"(B={b}, R={r}, C=256, P={p}, P2-P5 of 832x1344)")
         if not ok:
-            fail(f"K1 disagrees with its plain version in {dtype}")
+            fail(f"{tag} disagrees with its plain version in {dtype}")
         result[str(dtype).replace("torch.", "")] = {"max_abs_err": max_abs, "ms": ms,
                                                    "plain_ms": plain_ms}
         if old is not None:
@@ -391,14 +421,15 @@ def phase_roi_align(device, baseline: str | None = None) -> dict:
                 f"{time_ms(lambda: old(feats, rois, strides, levels, valid)):.4f} ms")
     for dtype in (torch.float32, torch.bfloat16):  # a width the 16-byte loads cannot take
         feats = [f[..., :131].contiguous() for f in main_path_pyramid(2, dtype, gen, device)]
-        got = roi_align_cuda(feats, rois[:2], strides, levels[:2], roi_valid=valid[:2])
-        ref = ra.multilevel_roi_align_plain(feats, rois[:2], strides, levels[:2],
+        got = roi_align_cuda(feats, rois[:2], strides, levels[:2], output_size=p,
+                             roi_valid=valid[:2])
+        ref = ra.multilevel_roi_align_plain(feats, rois[:2], strides, levels[:2], output_size=p,
                                             roi_valid=valid[:2])
         ok, max_abs, rule = k1_check(got, ref, valid[:2], dtype)
-        log(f"K1 roi_align {dtype}, C=131 (2 x 1000 rois): max_abs_err {max_abs:.3e} ({rule}: "
+        log(f"{tag} roi_align {dtype}, C=131 (2 x {r} rois): max_abs_err {max_abs:.3e} ({rule}: "
             f"{'ok' if ok else 'FAILED'})")
         if not ok:
-            fail(f"K1 disagrees with its plain version at C=131 in {dtype}")
+            fail(f"{tag} disagrees with its plain version at C=131 in {dtype}")
     return result
 
 
@@ -737,23 +768,23 @@ def k3_build_facts() -> None:
         fail("K3: the built kernel's tile or chunk is not the plain model's")
 
 
-def k3_pairs(shapes, strides, rois, levels, valid) -> tuple[int, int]:
-    """((roi, tile) pairs, longest roi list of a tile) of K3's partition."""
-    from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
-
-    taps = roi_cuda.roi_sample_taps(rois, levels, shapes, strides)
-    return roi_cuda.roi_tile_pairs(roi_cuda.roi_footprints(taps, valid), levels, shapes)
+K3_MODEL_CASES = ((131, 2), (64, 2), (64, 3))  # (C, S) at P = 7
 
 
-def k3_model_check(device) -> None:
+def k3_model_check(device, p: int = 7, cases=K3_MODEL_CASES) -> None:
     """K3 against its plain model (``roi_align_bwd_tiles``), bit for bit, on
     ragged maps (neither side a multiple of the tile) with rois of every
     kind the CPU tests name: overhanging and outside the map, narrower than
     a cell, past 40:1, at the last row and column, and a cluster on one
-    tile; C = 131 (a ragged last chunk, scalar loads) and 64 (vector
-    loads), S = 2 and 3 (g / 9 rounded through f64), g in f32 and bf16."""
+    tile; at P = 7 C = 131 (a ragged last chunk, scalar loads) and 64
+    (vector loads), S = 2 and 3 (g / 9 rounded through f64), g in f32 and
+    bf16; at P = 14 C = 256, where some rois' bins take more than K3's
+    stage and are read from g, the branch the main paths rarely take (the
+    pairs read from g are logged). The model, a loop of small ops, runs on
+    the CPU; its f32 products and sums round as on the card."""
     import torch
 
+    from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
     from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda, roi_align_bwd_tiles
 
     gen = torch.Generator().manual_seed(16)
@@ -772,51 +803,80 @@ def k3_model_check(device) -> None:
     rois = torch.stack([rois, rois.flip(0)]).to(device)
     valid = (torch.rand((2, 32), generator=gen) > 0.1).to(device)
     levels = (torch.rand((2, 32), generator=gen) > 0.6).int().to(device)
-    for c, s in ((131, 2), (64, 2), (64, 3)):
-        g32 = torch.randn((2, 32, 7, 7, c), generator=gen).to(device)
+    for c, s in cases:
+        g32 = torch.randn((2, 32, p, p, c), generator=gen).to(device)
         for g in (g32, g32.bfloat16()):
-            model, pairs, longest = roi_align_bwd_tiles(g, shapes, rois, strides, levels,
-                                                        sampling_ratio=s, roi_valid=valid)
+            model, pairs, longest = roi_align_bwd_tiles(
+                g.cpu(), shapes, rois.cpu(), strides, levels.cpu(), sampling_ratio=s,
+                roi_valid=valid.cpu())
             got = roi_align_bwd_cuda(g, shapes, rois, strides, levels, sampling_ratio=s,
                                      roi_valid=valid)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, m) for a, m in zip(got, model))
-            log(f"K3 vs its plain model, C={c}, S={s}, g {g.dtype}, maps {shapes}: "
+            same = all(torch.equal(a.cpu(), m) for a, m in zip(got, model))
+            taps = roi_cuda.roi_sample_taps(rois, levels, shapes, strides, output_size=p,
+                                            sampling_ratio=s)
+            unstaged = roi_cuda.roi_stage_pairs(
+                taps, roi_cuda.roi_footprints(taps, valid), levels, shapes, channels=c,
+                itemsize=g.element_size(), sampling_ratio=s)[2]
+            log(f"K3 vs its plain model, P={p}, C={c}, S={s}, g {g.dtype}, maps {shapes}: "
                 f"{'bit-identical' if same else 'DIFFERENT'} ({pairs} (roi, tile) pairs, "
-                f"longest list {longest})")
+                f"longest list {longest}, {unstaged} pairs read from g)")
             if not same:
-                fail(f"K3 differs from roi_align_bwd_tiles at C={c}, S={s}, g {g.dtype}")
+                fail(f"K3 differs from roi_align_bwd_tiles at P={p}, C={c}, S={s}, g {g.dtype}")
 
 
 def phase_roi_align_bwd(device) -> dict:
-    """K3 (K3b as its bf16 epilogue) at training shapes against torch
-    autograd of K1's plain version, on the same rois, levels and upstream
-    gradient; against its plain model; two runs bit for bit."""
+    """K3 (K3b as its bf16 epilogue): its build facts, its plain model, and
+    ``k3_synthetic`` at training shapes (8 x 512 rois, P = 7)."""
     import torch
-
-    from mxdetection_tpu_torch.ops import roi_align as ra
-    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     k3_build_facts()
     k3_model_check(device)
-    gen = torch.Generator().manual_seed(6)
-    b, r, strides = MAIN_BATCH, TRAIN_ROIS, (4, 8, 16, 32)
+    return k3_synthetic(device, 7, TRAIN_ROIS, torch.Generator().manual_seed(6))
+
+
+def k3_stage_facts(shapes, strides, rois, levels, valid, p: int, g) -> dict:
+    """K3's (roi, tile) pairs, its longest roi list, and the pairs (and
+    rois) whose bins of ``g`` do not fit its shared-memory stage, which it
+    reads from g (``roi_stage_pairs``)."""
+    from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
+
+    taps = roi_cuda.roi_sample_taps(rois, levels, shapes, strides, output_size=p)
+    pairs, longest, unstaged, by_roi = roi_cuda.roi_stage_pairs(
+        taps, roi_cuda.roi_footprints(taps, valid), levels, shapes, channels=g.shape[-1],
+        itemsize=g.element_size())
+    return {"pairs": pairs, "longest_list": longest, "unstaged_pairs": unstaged,
+            "unstaged_rois": int(by_roi.sum())}
+
+
+def k3_synthetic(device, p: int, r: int, gen) -> dict:
+    """K3 (K3b as its bf16 epilogue) on 8 x ``r`` synthetic rois over P2-P5
+    of 832x1344 with a P x P upstream gradient of C = 256, against torch
+    autograd of K1's plain version on the same rois, levels and gradient;
+    two runs bit for bit."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import roi_align as ra
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
+
+    b, strides, tag = MAIN_BATCH, (4, 8, 16, 32), f"K3 P={p}"
     rois, valid = main_path_rois(b, r, gen, device)
     levels = ra.roi_levels(rois, 4, min_level=2, canonical_scale=224.0, canonical_level=4)
     feats = main_path_pyramid(b, torch.float32, gen, device)
     shapes = [tuple(f.shape[1:3]) for f in feats]
-    g16 = torch.randn((b, r, 7, 7, 256), generator=gen).to(device=device, dtype=torch.bfloat16)
+    g16 = torch.randn((b, r, p, p, 256), generator=gen).to(device=device, dtype=torch.bfloat16)
     g32 = g16.float()
     result = {"rois": {"rois": rois.cpu(), "levels": levels.cpu(), "valid": valid.cpu()},
-              "shapes": shapes, "strides": strides}
-    result["pairs"], result["longest_list"] = k3_pairs(shapes, strides, rois, levels, valid)
-    log(f"K3 synthetic rois: {result['pairs']} (roi, tile) pairs, longest list "
-        f"{result['longest_list']}")
+              "shapes": shapes, "strides": strides,
+              **k3_stage_facts(shapes, strides, rois, levels, valid, p, g16)}
+    log(f"{tag} synthetic rois: {result['pairs']} (roi, tile) pairs, longest list "
+        f"{result['longest_list']}; with bf16 g {result['unstaged_pairs']} pairs of "
+        f"{result['unstaged_rois']} rois read from g, their bins past the stage")
 
     leaves = [f.requires_grad_() for f in feats]
-    out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, roi_valid=valid)
+    out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, output_size=p,
+                                        roi_valid=valid)
     plain = lambda: torch.autograd.grad(out, leaves, g32, retain_graph=True)
     ref = plain()
     scale = max(x.abs().max().item() for x in ref)
@@ -832,28 +892,28 @@ def phase_roi_align_bwd(device) -> dict:
     rounded = all(torch.equal(x, a.to(torch.bfloat16)) for x, a in zip(bf16, f32))
     k3b_err = max((x.float() - a.to(torch.bfloat16).float()).abs().max().item()
                   for x, a in zip(bf16, f32))
-    log(f"K3 roi_align_bwd f32: max_abs_err {max_abs:.3e} of max|ref| {scale:.3e} "
+    log(f"{tag} roi_align_bwd f32: max_abs_err {max_abs:.3e} of max|ref| {scale:.3e} "
         f"(max|err| <= 1e-5 max|ref|, the sums in another order: {'ok' if ok else 'FAILED'}); "
         f"two runs bit-identical: {again}; from bf16 g (the same values) bit-identical: "
         f"{from_bf16}; K3b: bf16 out equal to the f32 out .to(bfloat16): {rounded}")
     if not ok:
-        fail("K3 disagrees with autograd of the plain RoIAlign in float32")
+        fail(f"{tag} disagrees with autograd of the plain RoIAlign in float32")
     if not (again and from_bf16):
-        fail("K3: two runs on the same values differ")
+        fail(f"{tag}: two runs on the same values differ")
     if not rounded:
-        fail("K3b: the bf16 gradient is not the f32 gradient rounded to nearest even")
+        fail(f"{tag}: the bf16 gradient (K3b) is not the f32 gradient rounded to nearest even")
     plain_ms = time_ms(plain, reps=3, warmup=1)
     for dtype, g in ((torch.float32, g32), (torch.bfloat16, g16)):
         ms = time_ms(lambda: run(g, dtype))
-        log(f"K3 roi_align_bwd {dtype} (g and gradients): {ms:.4f} ms, autograd of plain "
-            f"{plain_ms:.4f} ms (B={b}, R={r}, C=256, P2-P5 of 832x1344)")
+        log(f"{tag} roi_align_bwd {dtype} (g and gradients): {ms:.4f} ms, autograd of plain "
+            f"{plain_ms:.4f} ms (B={b}, R={r}, C=256, P={p}, P2-P5 of 832x1344)")
         result[str(dtype).replace("torch.", "")] = {"max_abs_err": max_abs, "ms": ms,
                                                    "plain_ms": plain_ms}
     n_valid = int(valid.sum())
     pixels = sum(h * w for h, w in shapes) * b
     # bf16: g of the valid rois read, every level gradient written once
-    k3_bytes = n_valid * 49 * 256 * 2 + pixels * 256 * 2 + b * r * (16 + 4 + 1)
-    result["bound_ms"], result["bound_by"] = bound(k3_bytes, roi_flops(n_valid, 7, 2, 256))
+    k3_bytes = n_valid * p * p * 256 * 2 + pixels * 256 * 2 + b * r * (16 + 4 + 1)
+    result["bound_ms"], result["bound_by"] = bound(k3_bytes, roi_flops(n_valid, p, 2, 256))
 
     # K3b is the bf16 epilogue of the same kernel: it has no time of its own.
     # Its entry carries the fused kernel's bf16 time and bound, and beside
@@ -869,33 +929,43 @@ def phase_roi_align_bwd(device) -> dict:
     return result
 
 
-class CaptureRoiBwd:
+class CaptureRoi:
     """While active, keeps a copy of the rois, levels and validity of the
-    first call of the RoIAlign backward's wrapper (the autograd Function
-    reads it from its module at each call), and the shape and dtype of its
-    upstream gradient: nothing large, so the step's peak memory is its own."""
+    first call of the RoIAlign backward's wrapper (``backward``) or of the
+    forward's, at output size ``p`` if given (the autograd Function reads
+    the wrappers from their module at each call), and the shape and dtype
+    of its upstream gradient (or of its output, the same): nothing large,
+    so the step's peak memory is its own."""
 
-    def __init__(self):
+    def __init__(self, backward: bool = True, p: int | None = None):
         from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
 
-        self.module, self.first = roi_cuda, None
+        self.module, self.first, self.p = roi_cuda, None, p
+        self.name = "roi_align_bwd_cuda" if backward else "roi_align_cuda"
 
     def __enter__(self):
-        inner = self.orig = self.module.roi_align_bwd_cuda
+        inner = self.orig = getattr(self.module, self.name)
 
-        def wrapped(grad_out, feature_shapes, rois, strides, levels, **kw):
-            if self.first is None:
-                self.first = {"g": (tuple(grad_out.shape), grad_out.dtype),
-                              "shapes": list(feature_shapes), "rois": rois.clone(),
+        def wrapped(*args, **kw):
+            if self.name == "roi_align_bwd_cuda":
+                grad_out, shapes, rois, strides, levels = args
+                g = (tuple(grad_out.shape), grad_out.dtype)
+            else:
+                feats, rois, strides, levels = args
+                p = kw["output_size"]
+                g = ((*rois.shape[:2], p, p, feats[0].shape[-1]), feats[0].dtype)
+                shapes = [tuple(f.shape[1:3]) for f in feats]
+            if self.first is None and self.p in (None, g[0][2]):
+                self.first = {"g": g, "shapes": list(shapes), "rois": rois.clone(),
                               "strides": tuple(strides), "levels": levels.clone(),
                               "roi_valid": kw["roi_valid"].clone()}
-            return inner(grad_out, feature_shapes, rois, strides, levels, **kw)
+            return inner(*args, **kw)
 
-        self.module.roi_align_bwd_cuda = wrapped
+        setattr(self.module, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self.module.roi_align_bwd_cuda = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
 class CaptureNms:
@@ -934,25 +1004,37 @@ def phase_nms_proposals(sets: dict) -> dict:
 
 
 def phase_roi_align_bwd_train(device, cap: dict, k3: dict, k1: dict) -> None:
-    """K3 on the rois of one Faster R-CNN training step (captured from the
-    train path's first step) with a seeded upstream gradient of the step's
-    shape and dtype: f32 within 1e-5 of the largest value of autograd of the
-    plain version, bf16 equal to the f32 gradient rounded, the pairs and the
-    longest list, timed; K1 on the same rois and seeded bf16 features, held
-    against its plain version and timed."""
+    """K3 and K1 on the rois of one Faster R-CNN training step (captured
+    from the train path's first step), as ``k3_on_rois`` and ``k1_on_rois``
+    check them, K1 in the step's dtype."""
+    k3["train_step"] = k3_on_rois(device, cap, "one training step's rois", seed=17)
+    dtype = cap["g"][1]
+    k1["train_step"] = k1_on_rois(device, cap, "the training step's rois", (dtype,),
+                                  seed=18)[str(dtype).replace("torch.", "")]
+
+
+def k3_on_rois(device, cap: dict, what: str, seed: int) -> dict:
+    """K3 on captured rois (a ``CaptureRoi`` record) with a seeded
+    upstream gradient of the captured shape and dtype: f32 within 1e-5 of
+    the largest value of autograd of the plain version, bf16 equal to the
+    f32 gradient rounded; the pairs, the longest list and the pairs read
+    from g; timed in bf16."""
     import torch
 
     from mxdetection_tpu_torch.ops import roi_align as ra
-    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda, roi_align_cuda
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_bwd_cuda
 
     shape, dtype = cap["g"]
-    g = torch.randn(shape, generator=torch.Generator().manual_seed(17)).to(device, dtype)
+    p = shape[2]
+    tag = f"K3 P={p}"
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(device, dtype)
     shapes, strides = cap["shapes"], cap["strides"]
     rois, levels, valid = cap["rois"], cap["levels"], cap["roi_valid"]
-    pairs, longest = k3_pairs(shapes, strides, rois, levels, valid)
+    facts = k3_stage_facts(shapes, strides, rois, levels, valid, p, g)
     leaves = [torch.zeros((g.shape[0], h, w, g.shape[-1]), device=device, requires_grad=True)
               for h, w in shapes]
-    out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, roi_valid=valid)
+    out = ra.multilevel_roi_align_plain(leaves, rois, strides, levels, output_size=p,
+                                        roi_valid=valid)
     ref = torch.autograd.grad(out, leaves, g.float())
     run = lambda dtype: roi_align_bwd_cuda(g, shapes, rois, strides, levels,  # noqa: E731
                                            roi_valid=valid, out_dtype=dtype)
@@ -961,38 +1043,62 @@ def phase_roi_align_bwd_train(device, cap: dict, k3: dict, k1: dict) -> None:
     max_abs = max((a - e).abs().max().item() for a, e in zip(f32, ref))
     rounded = all(torch.equal(x, a.to(torch.bfloat16)) for x, a in zip(run(torch.bfloat16), f32))
     ms = time_ms(lambda: run(torch.bfloat16))
-    log(f"K3 on one training step's rois ({int(valid.sum())} valid of {tuple(valid.shape)}, rois "
-        f"a level {torch.bincount(levels[valid].long(), minlength=len(shapes)).tolist()}, g "
-        f"{g.dtype}): {pairs} (roi, tile) pairs, longest list {longest}; f32 max_abs_err "
-        f"{max_abs:.3e} of max|ref| {scale:.3e}; bf16 = f32 rounded: {rounded}; bf16 {ms:.4f} ms")
+    log(f"{tag} on {what} ({int(valid.sum())} valid of {tuple(valid.shape)}, rois a level "
+        f"{torch.bincount(levels[valid].long(), minlength=len(shapes)).tolist()}, g "
+        f"{g.dtype}): {facts['pairs']} (roi, tile) pairs, longest list {facts['longest_list']}, "
+        f"{facts['unstaged_pairs']} pairs of {facts['unstaged_rois']} rois read from g; f32 "
+        f"max_abs_err {max_abs:.3e} of max|ref| {scale:.3e}; bf16 = f32 rounded: {rounded}; "
+        f"bf16 {ms:.4f} ms")
     if max_abs > 1e-5 * scale or not rounded:
-        fail("K3 on the training step's rois disagrees with autograd of the plain RoIAlign")
-    k3["train_step"] = {"ms": ms, "pairs": pairs, "longest_list": longest, "max_abs_err": max_abs,
-                        "rois": {"rois": rois.cpu(), "levels": levels.cpu(),
-                                 "valid": valid.cpu()}}
-    gen = torch.Generator().manual_seed(18)
-    feats = [torch.randn((g.shape[0], h, w, g.shape[-1]), generator=gen).to(device, dtype)
-             for h, w in shapes]
-    fwd = lambda: roi_align_cuda(feats, rois, strides, levels, roi_valid=valid)  # noqa: E731
-    ok, k1_err, rule = k1_check(fwd(), ra.multilevel_roi_align_plain(
-        feats, rois, strides, levels, roi_valid=valid), valid, dtype)
-    k1_ms = time_ms(fwd)
-    log(f"K1 on the training step's rois ({dtype} features): max_abs_err {k1_err:.3e} ({rule}: "
-        f"{'ok' if ok else 'FAILED'}); {k1_ms:.4f} ms")
-    if not ok:
-        fail("K1 on the training step's rois disagrees with its plain version")
-    k1["train_step"] = {"ms": k1_ms, "max_abs_err": k1_err}
+        fail(f"{tag} on {what} disagrees with autograd of the plain RoIAlign")
+    return {"ms": ms, "max_abs_err": max_abs, **facts,
+            "rois": {"rois": rois.cpu(), "levels": levels.cpu(), "valid": valid.cpu()}}
+
+
+def k1_on_rois(device, cap: dict, what: str, dtypes, seed: int) -> dict:
+    """K1 at the captured output size on captured rois with seeded features
+    of the captured channels, in each of ``dtypes``, held against its plain
+    version (``k1_check``) and timed -> {dtype name: record}."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import roi_align as ra
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_cuda
+
+    shape = cap["g"][0]
+    b, p, c = shape[0], shape[2], shape[-1]
+    tag = f"K1 P={p}"
+    shapes, strides = cap["shapes"], cap["strides"]
+    rois, levels, valid = cap["rois"], cap["levels"], cap["roi_valid"]
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for dtype in dtypes:
+        feats = [torch.randn((b, h, w, c), generator=gen).to(device, dtype) for h, w in shapes]
+        fwd = lambda: roi_align_cuda(feats, rois, strides, levels,  # noqa: E731
+                                     output_size=p, roi_valid=valid)
+        ok, err, rule = k1_check(fwd(), ra.multilevel_roi_align_plain(
+            feats, rois, strides, levels, output_size=p, roi_valid=valid), valid, dtype)
+        ms = time_ms(fwd)
+        log(f"{tag} on {what} ({dtype} features): max_abs_err {err:.3e} ({rule}: "
+            f"{'ok' if ok else 'FAILED'}); {ms:.4f} ms")
+        if not ok:
+            fail(f"{tag} on {what} disagrees with its plain version in {dtype}")
+        out[str(dtype).replace("torch.", "")] = {"ms": ms, "max_abs_err": err}
+    return out
 
 
 # --------------------------------------------------------------------------
 # phase 6: inference path
 
 
-def detect(model, cfg, raw, hw, dtype):
+def detect(model, cfg, raw, hw, dtype, masks: bool = True):
+    """One batch: ``batch_transform``, ``forward_test``, ``rcnn_postprocess``
+    and, for a model with a mask head unless ``masks`` is false,
+    ``mask_probs`` (``dets["masks"]``). Returns (dets, outputs); the outputs
+    keep the batch's ``im_info``."""
     import torch
 
     from mxdetection_tpu_torch.data.transforms import batch_transform
-    from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
+    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs, rcnn_postprocess
 
     d = cfg.data
     pad_hw = (d.pad_h, d.pad_w)
@@ -1003,7 +1109,11 @@ def detect(model, cfg, raw, hw, dtype):
         tb = batch_transform(raw, hw, flip, gtb, out_hw=pad_hw, scale_size=d.scale,
                              max_size=d.max_size, mean=d.mean, std=d.std, dtype=dtype)
         out = model.forward_test(tb["images"], tb["im_info"])
-        return rcnn_postprocess(out, cfg, pad_hw, tb["im_info"]), out
+        out["im_info"] = tb["im_info"]
+        dets = rcnn_postprocess(out, cfg, pad_hw, tb["im_info"])
+        if masks and model.mask_head is not None:
+            dets["masks"] = mask_probs(model, out, dets, tb["im_info"])
+        return dets, out
 
 
 def check_dets(dets, hw, what: str) -> int:
@@ -1021,6 +1131,10 @@ def check_dets(dets, hw, what: str) -> int:
         fail(f"{what}: detections outside the image")
     if ((dets["labels"][v] < 0) | (dets["labels"][v] >= 80)).any():
         fail(f"{what}: labels out of range")
+    if "masks" in dets:
+        m = dets["masks"]
+        if m.shape != (*v.shape, 28, 28) or not ((m >= 0) & (m <= 1)).all():
+            fail(f"{what}: mask probabilities of shape {tuple(m.shape)}, not all in [0, 1]")
     return n_valid
 
 
@@ -1042,7 +1156,8 @@ def small_input():
 
 def check_parity(cpu, gpu, hw, what: str) -> None:
     """The card's detections against the CPU port's: same valid and labels,
-    boxes within 1e-2 px and scores within 1e-4."""
+    boxes within 1e-2 px and scores within 1e-4, and mask probabilities
+    (where there are) within 1e-3."""
     import torch
 
     gpu = {k: v.cpu() for k, v in gpu.items()}
@@ -1051,16 +1166,21 @@ def check_parity(cpu, gpu, hw, what: str) -> None:
     box_err = (cpu["boxes"] - gpu["boxes"]).abs().max().item()
     score_err = (cpu["scores"] - gpu["scores"]).abs().max().item()
     same_labels = torch.equal(cpu["labels"], gpu["labels"])
+    mask_err = (cpu["masks"] - gpu["masks"]).abs().max().item() if "masks" in cpu else 0.0
     log(f"{what} card vs CPU: {n} valid, same valid {same_valid}, same labels "
-        f"{same_labels}, max box err {box_err:.3e}, max score err {score_err:.3e} "
-        "(bound 1e-2 px, 1e-4)")
-    if not (same_valid and same_labels and box_err <= 1e-2 and score_err <= 1e-4):
+        f"{same_labels}, max box err {box_err:.3e}, max score err {score_err:.3e}"
+        + (f", max mask probability err {mask_err:.3e}" if "masks" in cpu else "")
+        + " (bound 1e-2 px, 1e-4" + (", 1e-3)" if "masks" in cpu else ")"))
+    if not (same_valid and same_labels and box_err <= 1e-2 and score_err <= 1e-4
+            and mask_err <= 1e-3):
         fail(f"{what}: card detections differ from the CPU port's")
 
 
-def small_parity(device) -> None:
+def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
+                 what: str = "small f32 input") -> None:
     """A 256x320 f32 input through the port on the card (kernels) and on the
-    CPU (plain versions, which the CPU tests hold against the JAX package)."""
+    CPU (plain versions, which the CPU tests hold against the JAX package),
+    with the mask probabilities where the config has a mask head."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -1068,19 +1188,20 @@ def small_parity(device) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**SMALL_OVERRIDES)
+    cfg = load_config(name).override(**SMALL_OVERRIDES)
     raw, hw = small_input()
     dets = {}
     for dev in ("cpu", device):
         model = build_detector(cfg, device="cpu", seed=0).to(dev)
         dets[dev] = detect(model, cfg, raw.to(dev), hw.to(dev), torch.float32)[0]
-    check_parity(dets["cpu"], dets[device], hw, "small f32 input")
+    check_parity(dets["cpu"], dets[device], hw, what)
 
 
 def drive(model, cfg, raw, hw, dtype, counters, card: str, what: str) -> tuple:
-    """A warm-up batch and ``TIMED_BATCHES`` timed ones of ``model``, every
-    launch count set to 0 just before and read just after; fails if a
-    counted kernel was never launched or the detections are wrong.
+    """A warm-up batch and ``TIMED_BATCHES`` timed ones of ``model`` (each
+    with its mask probabilities where it has a mask head), every launch
+    count set to 0 just before and read just after; fails if a counted
+    kernel was never launched or the detections are wrong.
     Returns (launches, dets, outputs, ms per batch)."""
     import torch
 
@@ -1147,9 +1268,13 @@ def phase_main_path(device, card: str, counters, profile_dir: str | None,
 
 def stage_breakdown(model, cfg, raw, hw, dtype, reps: int) -> dict:
     """Mean device-timeline ms of each stage of a main-path batch, split at
-    the module boundaries by CUDA events recorded from forward hooks. A
-    stage's time includes any device idle time inside it."""
+    the module boundaries by CUDA events recorded from forward hooks (with
+    a mask head, the mask branch after the postprocess: its RoIAlign, the
+    head, the class slice and sigmoid). A stage's time includes any device
+    idle time inside it."""
     import torch
+
+    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs
 
     marks = []
 
@@ -1172,13 +1297,21 @@ def stage_breakdown(model, cfg, raw, hw, dtype, reps: int) -> dict:
             model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
             model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
         ]
+    if model.mask_head is not None:
+        hooks += [
+            model.mask_head.register_forward_pre_hook(lambda *_: mark("mask roi_align")),
+            model.mask_head.register_forward_hook(lambda *_: mark("mask_head")),
+        ]
     totals = {}
     try:
         for _ in range(reps):
             marks.clear()
             mark("start")
-            detect(model, cfg, raw, hw, dtype)
+            dets, out = detect(model, cfg, raw, hw, dtype, masks=False)
             mark("rcnn_postprocess")
+            if model.mask_head is not None:
+                mask_probs(model, out, dets, out["im_info"])
+                mark("mask class slice + sigmoid")
             torch.cuda.synchronize()
             for (_, a), (name, b) in zip(marks, marks[1:]):
                 totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / reps
@@ -1650,7 +1783,10 @@ def phase_cascade_path(device, card: str, counters, profile_dir: str | None) -> 
 
 def train_batch(b: int, raw_hw, gen, device) -> dict:
     """``b`` uint8 canvases with 3 to 11 gt boxes each (the COCO mean is
-    about 7), padded to 100 rows, half of the images flipped."""
+    about 7), padded to 100 rows, half of the images flipped, and each
+    row's box mask (Mask R-CNN's; the other detectors' steps leave it),
+    drawn last: a filled ellipse of random centre and radii in the gt-box
+    frame, uint8 (b, 100, 28, 28)."""
     import torch
 
     h, w = raw_hw
@@ -1667,6 +1803,12 @@ def train_batch(b: int, raw_hw, gen, device) -> dict:
         "gt_labels": torch.randint(0, 80, (b, 100), generator=gen) * valid,
         "gt_valid": valid,
     }
+    centre = torch.rand((b, 100, 2, 1, 1), generator=gen) * 12 + 8
+    radii = torch.rand((b, 100, 2, 1, 1), generator=gen) * 8 + 5
+    ij = torch.arange(28.0) + 0.5
+    d = ((ij[:, None] - centre[:, :, 0]) / radii[:, :, 0]) ** 2 + (
+        (ij[None, :] - centre[:, :, 1]) / radii[:, :, 1]) ** 2
+    batch["box_masks"] = (d <= 1.0).to(torch.uint8)
     return {k: v.to(device) for k, v in batch.items()}
 
 
@@ -1694,7 +1836,8 @@ def grad_norms(model) -> dict:
     import torch
 
     out = {}
-    for mod in ("backbone", "fpn", "rpn", *(f"bbox_head{i}" for i in range(model.num_stages))):
+    mods = ["backbone", "fpn", "rpn", *(f"bbox_head{i}" for i in range(model.num_stages))]
+    for mod in mods + (["mask_head"] if model.mask_head is not None else []):
         gs = [p.grad.double() for p in getattr(model, mod).parameters() if p.grad is not None]
         out[f"gnorm_{mod}"] = float(torch.sqrt(sum((g * g).sum() for g in gs)))
     return out
@@ -1739,7 +1882,8 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(name, SMALL_TRAIN_OVERRIDES)
     batch = train_batch(2, (240, 300), torch.Generator().manual_seed(7), "cpu")
-    batch = {k: v[:, :8] if k.startswith("gt_") else v for k, v in batch.items()}
+    batch = {k: v[:, :8] if k.startswith("gt_") or k == "box_masks" else v
+             for k, v in batch.items()}
     replay = ReplayDraws(8)
     if state is None:
         model = build_detector(cfg, device="cpu", seed=0, train=True)
@@ -1767,10 +1911,12 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
 
 def train_stage_breakdown(trainer, batch, reps: int) -> dict:
     """Mean device-timeline ms of each stage of a training step (the calls
-    of ``Trainer.run_step``, split at the module boundaries by CUDA events)."""
+    of ``Trainer.run_step``, split at the module boundaries by CUDA events),
+    and, with a mask head, the time of the mask term of the loss alone
+    (inside the loss stage) -> (stages, {name: ms} outside the step)."""
     import torch
 
-    from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_loss
+    from mxdetection_tpu_torch.models.detectors.rcnn import mask_loss, rcnn_loss
 
     model, marks = trainer.model, []
 
@@ -1793,7 +1939,14 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
             model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
             model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
         ]
-    totals = {}
+    mask = model.mask_head is not None
+    if mask:
+        hooks += [
+            model.mask_head.register_forward_pre_hook(
+                lambda *_: mark("reg targets + mask roi_align")),
+            model.mask_head.register_forward_hook(lambda *_: mark("mask_head")),
+        ]
+    totals, apart = {}, {}
     try:
         for _ in range(reps):
             marks.clear()
@@ -1803,9 +1956,9 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
             for p in trainer.params:
                 p.grad = None
             out = model.forward_train(tb, trainer.draws)
-            mark("targets")
+            mark("mask targets" if mask else "targets")
             loss, _ = rcnn_loss(out, tb, trainer.draws, trainer.cfg)
-            mark("rcnn_loss (anchor assign)")
+            mark("rcnn_loss (anchor assign, mask loss)" if mask else "rcnn_loss (anchor assign)")
             loss.backward()
             mark("backward")
             trainer.optimizer.step([p.grad for p in trainer.params])
@@ -1813,10 +1966,15 @@ def train_stage_breakdown(trainer, batch, reps: int) -> dict:
             torch.cuda.synchronize()
             for (_, a), (name, b) in zip(marks, marks[1:]):
                 totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / reps
+            if mask:
+                with torch.no_grad():
+                    ms = time_ms(lambda: mask_loss(out, trainer.cfg), reps=1)
+                apart["mask loss (in rcnn_loss)"] = apart.get("mask loss (in rcnn_loss)",
+                                                              0.0) + ms / reps
     finally:
         for h in hooks:
             h.remove()
-    return totals
+    return totals, apart
 
 
 def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str | None,
@@ -1863,17 +2021,19 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
         + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(m.items()))
         + f"; launches per step {({k: n / TRAIN_STEPS for k, n in launches.items()})}")
     if profile_dir is not None:
-        stages = train_stage_breakdown(trainer, batch, reps=3)
+        stages, apart = train_stage_breakdown(trainer, batch, reps=3)
         total = sum(stages.values())
         for name, ms in stages.items():
             log(f"profile {what} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+        for name, ms in apart.items():
+            log(f"profile {what}: {name} alone {ms:.3f} ms")
         trace(lambda: trainer.run_step(batch), 2, f"{what} step",
               os.path.join(profile_dir, trace_name))
     return launches, q[1], peak
 
 
 def phase_train_path(device, card: str, counters, profile_dir: str | None,
-                     capture: CaptureRoiBwd, nms_capture: CaptureNms) -> tuple:
+                     capture: CaptureRoi, nms_capture: CaptureNms) -> tuple:
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -2410,6 +2570,85 @@ def phase_sync_bn_train_path(device, card: str, counters, profile_dir: str | Non
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: the Mask R-CNN path
+
+
+def phase_mask_path(device, card: str, counters: list, train_counters: list,
+                    profile_dir: str | None) -> tuple:
+    """Mask R-CNN R50-FPN (``mask_rcnn_r50_fpn_1x``). K1 and K3 at P = 14,
+    the mask branch's RoIAlign, against their plain versions on 8 x 128
+    synthetic rois, and K3 against its plain model there; the card against
+    the CPU at 256x320 in f32 (detections and mask probabilities, and one
+    training step); then at 8x832x1344 in bf16 ``TIMED_BATCHES`` batches of
+    ``forward_test`` + ``rcnn_postprocess`` + ``mask_probs`` (``counters``)
+    and ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` steps of ``Trainer.run_step``
+    with box masks (``train_counters``); K1 on the first batch's
+    detections, and K1 and K3 on the first step's mask rois. Returns
+    ({path: launches}, K1's P = 14 record, K3's)."""
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k1 = k1_synthetic(device, MASK_P, MASK_ROIS, torch.Generator().manual_seed(21))
+    k3_model_check(device, MASK_P, ((256, 2),))
+    k3 = k3_synthetic(device, MASK_P, MASK_ROIS, torch.Generator().manual_seed(22))
+    small_parity(device, MASK, "mask small f32 input")
+    small_train_parity(device, MASK, what="mask small f32 train step")
+
+    cfg = load_config(MASK)
+    dtype = getattr(torch, cfg.backbone.dtype)
+    t0 = time.perf_counter()
+    model = build_detector(cfg, device=device, seed=0)
+    log(f"mask path: {cfg.name}, {cfg.backbone.dtype}, mask head {cfg.mask_head}, seeded init "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(4)  # the Faster R-CNN path's canvases
+    raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
+                        dtype=torch.uint8).to(device)
+    hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
+    dets_capture = CaptureRoi(backward=False, p=MASK_P)
+    with dets_capture:
+        launches = {"mask_inference": drive(model, cfg, raw, hw, dtype, counters, card,
+                                            "mask path")[0]}
+    per_batch = {k: n / (TIMED_BATCHES + 1) for k, n in launches["mask_inference"].items()}
+    log(f"mask path: launches per batch {per_batch}")
+    if per_batch.get("roi_align") != 2:
+        fail(f"mask path: expected 2 K1 launches a batch (7x7 and 14x14), got {per_batch}")
+    if profile_dir is not None:
+        phase_profile(model, cfg, raw, hw, dtype, profile_dir, label="mask_path")
+    del model
+
+    cfg = load_config(MASK, {"data.batch_size_per_device": MAIN_BATCH})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device, seed=0, steps_per_epoch=117266 // MAIN_BATCH)
+    log(f"mask train path: f32 master weights, {cfg.backbone.dtype} compute, seeded init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
+    step_capture = CaptureRoi(p=MASK_P)
+    with step_capture:
+        launches["mask_train"] = drive_train(trainer, batch, train_counters, card,
+                                             "mask train path", profile_dir,
+                                             "mask_train_trace.json.gz")[0]
+    per_step = {k: n / TRAIN_STEPS for k, n in launches["mask_train"].items()}
+    if per_step.get("roi_align") != 2 or per_step.get("roi_align_bwd") != 2:
+        fail(f"mask train path: expected 2 K1 and 2 K3 launches a step, got {per_step}")
+    del trainer
+
+    both = (torch.float32, torch.bfloat16)
+    k1["mask_detections"] = k1_on_rois(device, dets_capture.first,
+                                       "the first mask batch's detections", both, seed=23)
+    cap = step_capture.first
+    k3["mask_train_step"] = k3_on_rois(device, cap, "one mask training step's mask rois",
+                                       seed=24)
+    k1["mask_train_step"] = k1_on_rois(device, cap, "one mask training step's mask rois",
+                                       both, seed=25)
+    return launches, k1, k3
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2460,7 +2699,7 @@ def main() -> int:
     paths["cascade_inference"] = phase_cascade_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count], args.profile)
-    capture = CaptureRoiBwd()
+    capture = CaptureRoi()
     paths["train"], faster_ms, faster_peak = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
@@ -2492,6 +2731,12 @@ def main() -> int:
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
         iou_cuda.pass_b_count], args.profile, (faster_ms, faster_peak))
+    mask_paths, k1["p14"], k3["p14"] = phase_mask_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count], [
+        roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
+        iou_cuda.pass_b_count], args.profile)
+    paths.update(mask_paths)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res
@@ -2504,13 +2749,22 @@ def main() -> int:
 
     k1_err = {**k1, "max_abs_err": k1["float32"]["max_abs_err"]}
     k3_err = {**k3, "max_abs_err": k3["float32"]["max_abs_err"]}
+
+    def p14(res, extra):
+        """P = 14 record: bf16 times, f32 error, bound, and what else it carries."""
+        return {"ms": res["bfloat16"]["ms"], "plain_ms": res["bfloat16"]["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "max_abs_err": res["float32"]["max_abs_err"],
+                **{k: v for k, v in res.items() if k in extra}}
+
     kernels = [
         # K1's times are of bf16 at phase 2's 8 x 1000 rois; beside them its time
         # at one training step's rois and the bytes its taps gather
         {**entry("roi_align_fwd", "roi_align.cu", K1_REPLACES, "roi_align", k1_err,
                  k1["bfloat16"]),
          "train_step_rois": k1["train_step"], "gathered_bytes": k1["gathered_bytes"],
-         "l2_copy_tb_s": k1["l2_copy_tb_s"]},
+         "l2_copy_tb_s": k1["l2_copy_tb_s"],
+         "p14": p14(k1["p14"], ("gathered_bytes", "mask_detections", "mask_train_step"))},
         # K2's times are at phase 3's three shapes; beside them its time, bound
         # and shares on the problems of a Faster batch and training step
         {**entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
@@ -2521,7 +2775,10 @@ def main() -> int:
         {**entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,
                  k3["bfloat16"]),
          "pairs": k3["pairs"], "longest_list": k3["longest_list"],
-         "train_step_rois": {k: v for k, v in k3["train_step"].items() if k != "rois"}},
+         "train_step_rois": {k: v for k, v in k3["train_step"].items() if k != "rois"},
+         "p14": {**p14(k3["p14"], ("pairs", "longest_list", "unstaged_pairs", "unstaged_rois")),
+                 "mask_train_step": {k: v for k, v in k3["p14"]["mask_train_step"].items()
+                                     if k != "rois"}}},
         # K3b is K3's bf16 epilogue: its launches are K3's with bf16 gradients
         {**entry("f32_to_bf16", "roi_align_bwd.cu", K3B_REPLACES, "roi_align_bwd_bf16",
                  k3["k3b"]), "fused_into": "roi_align_bwd"},

@@ -1,8 +1,8 @@
 """Detection losses — port of ``mxdetection_tpu.losses.losses``.
 
 Plain elementwise and reduction chains, as in the JAX package. The focal
-loss (RetinaNet), the mask BCE (Mask R-CNN) and OHEM (R-FCN) come with
-their detectors (ROADMAP Queue 1 items 11, 12 and 14).
+loss (RetinaNet) and OHEM (R-FCN) come with their detectors (ROADMAP
+Queue 1 items 12 and 14).
 """
 
 from __future__ import annotations
@@ -28,3 +28,14 @@ def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = -torch.gather(logp, -1, safe[:, None])[:, 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def mask_bce_loss(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Mask R-CNN's per-roi mask BCE, averaged over each roi's pixels, then
+    over the valid rois: mask_logits (..., R, S, S), the slice of each roi's
+    gt class; targets in {0, 1}; valid (..., R) -> (...). In f32."""
+    x, t = mask_logits.float(), mask_targets.float()
+    ce = -(t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
+    per_roi = torch.where(valid, ce.mean((-1, -2)), 0.0)
+    return per_roi.sum(-1) / valid.sum(-1).clamp(min=1)

@@ -1,4 +1,4 @@
-"""Faster and Cascade R-CNN — port of ``mxdetection_tpu.models.detectors.rcnn``.
+"""Faster, Mask and Cascade R-CNN — port of ``mxdetection_tpu.models.detectors.rcnn``.
 
 Inference: ResNet (with deformable stages for the Cascade R-CNN DCN config)
 -> FPN P2-P6 -> RPN -> proposals (per-level top-k, decode, clip, NMS, merged
@@ -19,8 +19,16 @@ first takes the rois the previous stage refined (decoded from its detached
 deltas) and labels them by IoU at its threshold (``relabel_rois``, K4's pass
 A, no subsampling); the loss weighs stage i by ``stage_loss_weights[i]``. The
 random draws of the two samplers come from an injectable source
-(``ops/matching.py``). The mask branch and OHEM are ROADMAP Queue 1 items
-11 and 14.
+(``ops/matching.py``). OHEM is ROADMAP Queue 1 item 14.
+
+Mask R-CNN (``cfg.mask_head``): in training the mask branch runs on the
+first ``round(num_samples * pos_fraction)`` sampled rois of stage 0, the fg
+quota, which ``sample_rois`` fills with the positives first: RoIAlign at
+``roi_output_size`` (14, K1 and K3 again) with the positives as the valid
+mask, the mask head, and targets cropped from the matched gt's box mask
+(``ops/mask_target.py``); ``rcnn_loss`` adds the BCE of each positive's gt
+class slice. At inference ``mask_forward`` runs the branch on the final
+detections and ``mask_probs`` gives each detection's mask probabilities.
 """
 
 from __future__ import annotations
@@ -31,15 +39,16 @@ from torch import nn
 
 from ...config import Config
 
-from ...losses.losses import smooth_l1_loss
+from ...losses.losses import mask_bce_loss, smooth_l1_loss
 from ...ops import anchors as anchor_lib
 from ...ops import boxes as box_lib
 from ...ops import matching
 from ...ops import nms as nms_lib
+from ...ops.mask_target import mask_targets_for_rois
 from ...ops.proposals import generate_proposals
 from ...ops.roi_align import multilevel_roi_align
 from ..backbones.resnet import ResNet
-from ..heads.bbox_head import BBoxHead
+from ..heads.bbox_head import BBoxHead, MaskHead
 from ..heads.rpn import RPNHead
 from ..necks.fpn import FPN
 
@@ -99,17 +108,19 @@ def decode_stage_boxes(rois: torch.Tensor, deltas: torch.Tensor, stds,
 
 
 class RCNN(nn.Module):
-    """Faster R-CNN (FPN), or Cascade R-CNN with ``cfg.cascade``. Parameter
-    names follow the JAX module tree (``bbox_head0`` .. ``bbox_head{n-1}``),
-    so ``utils/convert.py`` maps a flax checkpoint 1:1. Computes in
+    """Faster R-CNN (FPN), Mask R-CNN with ``cfg.mask_head``, or Cascade
+    R-CNN with ``cfg.cascade``. Parameter names follow the JAX module tree
+    (``bbox_head0`` .. ``bbox_head{n-1}``, ``mask_head``), so
+    ``utils/convert.py`` maps a flax checkpoint 1:1. Computes in
     ``cfg.backbone.dtype`` whatever the dtype of its parameters."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         c = cfg
-        if c.detector not in ("faster_rcnn", "cascade_rcnn") or c.mask_head is not None:
+        if (c.detector not in ("faster_rcnn", "mask_rcnn", "cascade_rcnn")
+                or (c.mask_head is not None and c.detector != "mask_rcnn")):
             raise NotImplementedError(f"detector {c.detector!r} is not ported yet "
-                                      "(ROADMAP Queue 1 items 11-14)")
+                                      "(ROADMAP Queue 1 items 12-14)")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, c.backbone.dtype)
         self.backbone = ResNet(depth=c.backbone.depth, norm_kind=c.backbone.norm,
@@ -127,6 +138,9 @@ class RCNN(nn.Module):
             self.add_module(f"bbox_head{i}", BBoxHead(
                 p * p * c.fpn.out_channels, num_classes=c.bbox_head.num_classes,
                 fc_channels=c.bbox_head.fc_channels, class_agnostic=self.class_agnostic))
+        self.mask_head = None if c.mask_head is None else MaskHead(
+            c.fpn.out_channels, num_classes=c.bbox_head.num_classes,
+            num_convs=c.mask_head.num_convs, channels=c.mask_head.channels)
 
     def bbox_head(self, i: int) -> BBoxHead:
         return getattr(self, f"bbox_head{i}")
@@ -140,6 +154,8 @@ class RCNN(nn.Module):
             m.reset_parameters(gen)
         for i in range(self.num_stages):
             self.bbox_head(i).reset_parameters(gen)
+        if self.mask_head is not None:
+            self.mask_head.reset_parameters(gen)
 
     def extract(self, images: torch.Tensor) -> list:
         return self.fpn(self.backbone(images))
@@ -186,10 +202,24 @@ class RCNN(nn.Module):
     def forward(self, images: torch.Tensor, im_info: torch.Tensor) -> dict:
         return self.forward_test(images, im_info)
 
+    @torch.no_grad()
+    def mask_forward(self, pyramid: list, det_boxes: torch.Tensor,
+                     det_valid: torch.Tensor) -> torch.Tensor:
+        """The mask branch on final detections: det_boxes (B, D, 4) in
+        resized-image coordinates, det_valid (B, D) -> (B, D, M, M, C) f32
+        logits (M = ``mask_size``, C = ``num_classes``)."""
+        m = self.cfg.mask_head
+        b, d = det_boxes.shape[:2]
+        feats = batched_roi_align(pyramid, det_boxes, det_valid, self.cfg, m.roi_output_size)
+        logits = self.mask_head(feats.reshape(b * d, *feats.shape[2:]))
+        return logits.reshape(b, d, m.mask_size, m.mask_size, -1)
+
     def forward_train(self, tb: dict, draws: matching.Draws) -> dict:
         """tb: images (B, H, W, 3), im_info (B, 3), gt_boxes (B, G, 4) in
-        network coordinates, gt_labels (B, G) 0-based, gt_valid (B, G).
-        Returns each stage's outputs and targets, which ``rcnn_loss`` reads."""
+        network coordinates, gt_labels (B, G) 0-based, gt_valid (B, G), and
+        for Mask R-CNN box_masks (B, G, M, M) uint8, each gt's mask in its
+        box's frame. Returns each stage's outputs and targets, which
+        ``rcnn_loss`` reads."""
         c = self.cfg
         images = tb["images"].to(self.compute_dtype)
         b = images.shape[0]
@@ -237,7 +267,21 @@ class RCNN(nn.Module):
                                                 self._stage_stds(i), resized_hw)
                 labels, matched, pos = relabel_rois(stage_rois, valid, gt_boxes, gt_labels1,
                                                     gt_valid, c.cascade.stage_iou_thrs[i + 1])
-        return {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg, "stages": stages, "pad_hw": pad_hw}
+        out = {"rpn_cls": rpn_cls, "rpn_reg": rpn_reg, "stages": stages, "pad_hw": pad_hw}
+        if self.mask_head is not None:
+            # The fg quota's prefix holds every positive (sample_rois puts the
+            # fg band first): the fg-only mask branch at a static shape.
+            m = c.mask_head
+            mp = int(round(h.num_samples * h.pos_fraction))
+            mask_rois = stages[0]["rois"][:, :mp]
+            feats = batched_roi_align(pyramid, mask_rois, stages[0]["pos"][:, :mp], c,
+                                      m.roi_output_size)
+            logits = self.mask_head(feats.reshape(b * mp, *feats.shape[2:]))
+            out["mask_logits"] = logits.reshape(b, mp, m.mask_size, m.mask_size, -1)
+            out["mask_targets"] = mask_targets_for_rois(
+                tb["box_masks"], gt_boxes, mask_rois, sampled.matched_gt[:, :mp],
+                out_size=m.mask_size)
+        return out
 
 
 def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tuple:
@@ -249,7 +293,8 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
     second stage takes softmax CE over its rois and smooth-L1 on the
     positives' class-specific (cascade: class-agnostic) deltas, and adds to
     the total weighted by ``cascade.stage_loss_weights`` (1 without a
-    cascade). Everything is f32, as the JAX loss.
+    cascade); Mask R-CNN adds ``mask_loss`` as ``loss_mask``. Everything is
+    f32, as the JAX loss.
     """
     c = cfg
     if c.bbox_head.ohem:
@@ -304,8 +349,24 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
         metrics[f"loss_rcnn_reg{i}"] = (l1.sum(-1) / norm).mean() * c.bbox_head.loss_bbox_weight
         metrics[f"rcnn_acc{i}"] = acc.mean()
         total = total + w * (metrics[f"loss_rcnn_cls{i}"] + metrics[f"loss_rcnn_reg{i}"])
+    if "mask_logits" in outputs:
+        metrics["loss_mask"] = mask_loss(outputs, c)
+        total = total + metrics["loss_mask"]
     metrics["num_pos_rois"] = outputs["stages"][0]["pos"].sum(1).float().mean()
     return total, metrics
+
+
+def mask_loss(outputs: dict, cfg: Config) -> torch.Tensor:
+    """``rcnn_loss``'s mask term: the BCE of each positive's logits of its
+    gt class (the branch ran on the fg prefix of stage 0's rois), averaged
+    over the images, times ``mask_head.loss_weight``."""
+    logits = outputs["mask_logits"]
+    b, mp, ms = logits.shape[:3]
+    st = outputs["stages"][0]
+    cls_idx = (st["labels"][:, :mp].long() - 1).clamp(0, cfg.bbox_head.num_classes - 1)
+    sel = torch.gather(logits, -1, cls_idx[..., None, None, None].expand(b, mp, ms, ms, 1))
+    loss = mask_bce_loss(sel[..., 0], outputs["mask_targets"], st["pos"][:, :mp])
+    return loss.mean() * cfg.mask_head.loss_weight
 
 
 @torch.no_grad()
@@ -346,3 +407,18 @@ def rcnn_postprocess(outputs: dict, cfg: Config, image_hw: tuple[int, int],
     scale = im_info[:, 2][:, None, None]
     ob = box_lib.clip_boxes(ob / scale, im_info[:, None, :2])
     return {"boxes": ob, "scores": os_, "labels": ol, "valid": ov}
+
+
+@torch.no_grad()
+def mask_probs(model: RCNN, outputs: dict, dets: dict, im_info: torch.Tensor) -> torch.Tensor:
+    """Each detection's mask probabilities, as the JAX evaluator forms them:
+    ``dets`` of ``rcnn_postprocess`` (boxes in original-image coordinates,
+    0-based labels) scaled back into the resized image by ``im_info[:, 2]``,
+    ``mask_forward`` on ``outputs["pyramid"]`` of ``forward_test``, each
+    detection's label slice, sigmoid -> (B, D, M, M) f32."""
+    boxes = dets["boxes"] * im_info[:, 2][:, None, None]
+    logits = model.mask_forward(outputs["pyramid"], boxes, dets["valid"])
+    b, d, ms = logits.shape[:3]
+    cls_idx = dets["labels"].long().clamp(0, logits.shape[-1] - 1)
+    sel = torch.gather(logits, -1, cls_idx[..., None, None, None].expand(b, d, ms, ms, 1))
+    return torch.sigmoid(sel[..., 0])

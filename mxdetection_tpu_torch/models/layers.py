@@ -5,10 +5,11 @@ Modules of the port take and return NCHW tensors in ``channels_last`` memory
 inside the network (so every NHWC view is contiguous for free); the public
 detector functions keep the JAX package's NHWC layout.
 
-Parameters are cast to the input's dtype when read (``Conv2d``, ``Linear``,
-``FrozenBatchNorm``), as flax's ``param_dtype=float32, dtype=bfloat16``
-does: a training model keeps f32 master weights and computes in the
-config's dtype, and the gradients reach the f32 weights through the cast.
+Parameters are cast to the input's dtype when read (``Conv2d``,
+``ConvTranspose2d``, ``Linear``, ``FrozenBatchNorm``), as flax's
+``param_dtype=float32, dtype=bfloat16`` does: a training model keeps f32
+master weights and computes in the config's dtype, and the gradients reach
+the f32 weights through the cast.
 
 Seeded initialisers mirror flax's: ``he_normal`` (truncated normal, fan-in,
 scale 2), ``xavier_uniform`` and ``normal(std)``, drawn from a
@@ -158,6 +159,16 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its input's dtype (weights cast on
+    read). Its weight is (in, out, kh, kw)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` computing in its input's dtype (weights cast on read)."""
 
@@ -175,9 +186,10 @@ def conv(in_channels: int, features: int, kernel: int = 3, stride: int = 1, *,
 
 
 @torch.no_grad()
-def he_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """flax ``he_normal``: truncated normal in [-2, 2] std, std sqrt(2/fan_in)."""
-    fan_in = w[0].numel()
+def he_normal_(w: torch.Tensor, gen: torch.Generator, fan_in: int | None = None) -> None:
+    """flax ``he_normal``: truncated normal in [-2, 2] std, std sqrt(2/fan_in).
+    ``fan_in`` defaults to a Conv2d/Linear weight's, ``w[0].numel()``."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
     std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
     t = torch.empty(w.shape).normal_(generator=gen)
     while True:  # resample the tails: a truncated normal by rejection
@@ -204,10 +216,14 @@ def normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_layer_(m: nn.Module, kind: str, gen: torch.Generator, std: float = 0.01) -> None:
-    """Initialise a Conv2d/Linear weight by ``kind`` (he_normal | xavier |
-    normal) and zero its bias, on the CPU generator, in place."""
+    """Initialise a Conv2d/ConvTranspose2d/Linear weight by ``kind``
+    (he_normal | xavier | normal) and zero its bias, on the CPU generator, in
+    place. A transposed conv's fan-in is in-channels x kh x kw, as flax
+    counts it for a ``ConvTranspose`` kernel (kh, kw, in, out)."""
     if kind == "he_normal":
-        he_normal_(m.weight, gen)
+        w = m.weight
+        he_normal_(w, gen, w.shape[0] * w[0, 0].numel()
+                   if isinstance(m, nn.ConvTranspose2d) else None)
     elif kind == "xavier":
         xavier_uniform_(m.weight, gen)
     elif kind == "normal":

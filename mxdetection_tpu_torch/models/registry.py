@@ -1,6 +1,6 @@
 """Detector registry — port of ``mxdetection_tpu.models.registry`` for the
-detectors ported so far: Faster R-CNN (frozen BN or SyncBN) and Cascade
-R-CNN with deformable convs, inference and training."""
+detectors ported so far: Faster R-CNN (frozen BN or SyncBN), Mask R-CNN
+and Cascade R-CNN with deformable convs, inference and training."""
 
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
     weights get the JAX package's initialisers from a ``torch.Generator``
     (the card has no JAX to convert weights from); otherwise load a
     converted ``state_dict`` (``utils/convert.py``)."""
-    if cfg.detector not in ("faster_rcnn", "cascade_rcnn"):
+    if cfg.detector not in ("faster_rcnn", "mask_rcnn", "cascade_rcnn"):
         raise NotImplementedError(f"detector {cfg.detector!r} is not ported yet "
-                                  "(ROADMAP Queue 1 items 11-14)")
+                                  "(ROADMAP Queue 1 items 12-14)")
     from .backbones.resnet import DeformConv
     from .detectors.rcnn import RCNN
     from .layers import NORMS

@@ -183,6 +183,15 @@ def roi_align_bwd_config(csrc_dir: str | None = None) -> dict:
     return dict(_bwd_constants(csrc_dir or build.CSRC_DIR))
 
 
+def roi_align_bwd_stage_bytes(csrc_dir: str | None = None) -> int:
+    """K3's shared-memory stage (``kStageBytes``), read from its source."""
+    with open(os.path.join(csrc_dir or build.CSRC_DIR, BWD_SOURCE)) as f:
+        m = re.search(r"constexpr int kStageBytes = (\d+)(?: \* (\d+))?;", f.read())
+    if m is None:
+        raise RuntimeError(f"{BWD_SOURCE}: kStageBytes not found")
+    return int(m.group(1)) * int(m.group(2) or 1)
+
+
 def roi_align_bwd_layout_cuda() -> dict:
     """What the built kernel reports, in ``roi_align_bwd_config``'s keys.
     Builds the library on first use; launches nothing."""
@@ -232,6 +241,52 @@ def roi_tile_pairs(footprints: torch.Tensor, levels: torch.Tensor,
             grid.index_put_((img, ys, xs), torch.full_like(ys, sign), accumulate=True)
         longest = max(longest, int(grid.cumsum(1).cumsum(2).max()))
     return pairs, longest
+
+
+def _axis_bins(lo, hi, w_lo, w_hi, extent: int, tiles: int, s: int) -> torch.Tensor:
+    """Along one axis, the bins in reach of each tile of ``extent`` cells:
+    from the bin of the first sample whose lo or hi tap lands in the tile
+    with a nonzero weight to the bin of the last; (..., n) -> (..., tiles),
+    0 where no tap lands."""
+    n = lo.shape[-1]
+    t = torch.arange(tiles, device=lo.device)[:, None]
+    on = ((((lo // extent)[..., None, :] == t) & (w_lo != 0)[..., None, :])
+          | (((hi // extent)[..., None, :] == t) & (w_hi != 0)[..., None, :]))
+    k = torch.arange(n, device=lo.device)
+    first = torch.where(on, k, n).amin(-1)
+    last = torch.where(on, k, -1).amax(-1)
+    return torch.where(last >= 0, last // s - first // s + 1, 0)
+
+
+def roi_stage_pairs(taps: tuple, footprints: torch.Tensor, levels: torch.Tensor,
+                    feature_shapes: Sequence[tuple[int, int]], *, channels: int,
+                    itemsize: int, sampling_ratio: int = 2) -> tuple:
+    """Which (roi, tile) pairs of K3 read g from global memory: the block
+    stages, for each roi of its list, the bins of g in reach of its tile
+    (their channels of one chunk, zero-padded to a lane's), and a roi whose
+    bins alone take more than the stage (``kStageBytes``) is read from g
+    instead. Counted for a full channel chunk, the largest. ``taps`` from
+    ``roi_sample_taps``, ``footprints`` from ``roi_footprints`` -> ((roi,
+    tile) pairs, longest list, unstaged pairs, (B, R) bool: the rois with an
+    unstaged pair)."""
+    conf = roi_align_bwd_config()
+    th, tw = conf["tile"]
+    lane = conf["chunk"] // 32
+    width = -(-min(conf["chunk"], channels) // lane) * lane
+    capacity = roi_align_bwd_stage_bytes() // (width * itemsize)  # bins the stage holds
+    pairs, longest = roi_tile_pairs(footprints, levels, feature_shapes)
+    nonempty = footprints[..., 0] <= footprints[..., 1]
+    unstaged, rois = 0, torch.zeros(levels.shape, dtype=torch.bool, device=levels.device)
+    for lvl, (h, w) in enumerate(feature_shapes):
+        on = nonempty & (levels == lvl)
+        if not bool(on.any()):
+            continue
+        by = _axis_bins(*(t[on] for t in taps[:4]), th, -(-h // th), sampling_ratio)
+        bx = _axis_bins(*(t[on] for t in taps[4:]), tw, -(-w // tw), sampling_ratio)
+        over = (by[:, :, None] * bx[:, None, :]) > capacity
+        unstaged += int(over.sum())
+        rois[on] = over.flatten(1).any(1)
+    return pairs, longest, unstaged, rois
 
 
 def _axis_entries(lo: list, hi: list, w_lo: list, w_hi: list, cell: int, s: int) -> list:

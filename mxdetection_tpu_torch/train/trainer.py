@@ -94,7 +94,7 @@ def sanitize_gt(tb: dict, min_size: float = 1.0) -> dict:
 
 
 class Trainer:
-    """Data-parallel trainer of a Faster or Cascade R-CNN
+    """Data-parallel trainer of a Faster, Mask or Cascade R-CNN
     (``build_detector(train=True)``), one replica per process.
 
     ``model=None`` builds one from ``cfg`` on ``device`` with seeded
@@ -138,13 +138,17 @@ class Trainer:
             dtype=self.model.compute_dtype, scale_sizes=batch.get("scale_size"))
         tb["gt_labels"] = batch["gt_labels"]
         tb["gt_valid"] = batch["gt_valid"].bool()
+        if "box_masks" in batch:  # already mirrored for flipped images by the loader
+            tb["box_masks"] = batch["box_masks"]
         return sanitize_gt(tb)
 
     def run_step(self, batch: dict, draws: Draws | None = None) -> dict:
         """One update from this replica's rows of the global batch: raw
         (B, h, w, 3) uint8, hw (B, 2), flip (B,), gt_boxes (B, G, 4),
-        gt_labels (B, G), gt_valid (B, G), optionally portrait and
-        scale_size (B,); every replica holds the same B. Returns the metrics
+        gt_labels (B, G), gt_valid (B, G), for Mask R-CNN box_masks
+        (B, G, M, M) uint8 (each gt's mask in its box's frame, mirrored for
+        a flipped image), optionally portrait and scale_size (B,); every
+        replica holds the same B. Returns the metrics
         averaged over the replicas as 0-d tensors on the device (no host
         sync on one replica): the loss terms, ``loss`` and ``grad_norm``,
         the global norm of the averaged gradient before clipping."""

@@ -7,6 +7,13 @@ tree, so a variable at ``params/backbone/layer1_block0/conv1/kernel`` lands
 at ``backbone.layer1_block0.conv1.weight``:
 
 - conv kernels HWIO -> OIHW;
+- a transposed conv's kernel (flax ``ConvTranspose``, (kh, kw, in, out),
+  the mask head's ``mask_deconv``) -> ``ConvTranspose2d``'s (in, out, kh,
+  kw) with both spatial axes flipped: flax's ``transpose_kernel=False``
+  convolves the dilated input with the kernel as it is, torch's transposed
+  conv with the kernel flipped. The shape cannot tell it from a conv kernel
+  (in = out = 256 in the mask head), so the rule is chosen by the module
+  that receives it: ``flax_to_state_dict`` needs the model for such a tree;
 - Dense kernels (in, out) -> Linear weights (out, in). The RoI features reach
   ``bbox_head0/fc1`` flattened channels-last, (7, 7, 256) in HWC order, in
   both frameworks, so its rows need no permutation;
@@ -39,8 +46,13 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def flax_to_state_dict(variables: dict) -> dict:
-    """-> {name: float32 tensor} for ``model.load_state_dict``."""
+def flax_to_state_dict(variables: dict, model: torch.nn.Module | None = None) -> dict:
+    """-> {name: float32 tensor} for ``model.load_state_dict``. A 4-D kernel
+    goes to a conv unless ``model`` holds a transposed conv at its name;
+    without ``model`` a tree with a transposed conv's kernel would convert
+    wrongly, so ``load_flax_variables`` always passes it."""
+    transposed = set() if model is None else {
+        name for name, m in model.named_modules() if isinstance(m, torch.nn.ConvTranspose2d)}
     sd = {}
     for name, arr in _flatten(variables.get("params", {})).items():
         prefix, leaf = name.rpartition(".")[::2]
@@ -50,6 +62,8 @@ def flax_to_state_dict(variables: dict) -> dict:
         prefix = prefix + "." if prefix else ""
         if leaf in ("gamma", "beta") and arr.ndim == 1:
             sd[prefix + leaf] = arr
+        elif leaf == "kernel" and arr.ndim == 4 and prefix[:-1] in transposed:
+            sd[prefix + "weight"] = arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif leaf == "kernel" and arr.ndim == 4:
             sd[prefix + "weight"] = arr.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and arr.ndim == 2:
@@ -65,7 +79,7 @@ def flax_to_state_dict(variables: dict) -> dict:
 def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
     """Load converted flax variables into ``model`` in place (strict: every
     tensor of the model must be covered, and nothing left over)."""
-    sd = flax_to_state_dict(variables)
+    sd = flax_to_state_dict(variables, model)
     ref = model.state_dict()
     sd = {k: v.to(dtype=ref[k].dtype) if k in ref else v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)

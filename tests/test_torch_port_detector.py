@@ -172,16 +172,19 @@ def test_bbox_head(agnostic):
 # ---------------------------------------------------------------- the slice
 
 
-def fixture_cfg():
+def fixture_cfg(name="faster_rcnn_r50_fpn_1x"):
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from test_detector_fixtures import shrink
 
-    return shrink(load_config(os.path.join(REPO, "configs/faster_rcnn_r50_fpn_1x.py")))
+    return shrink(load_config(os.path.join(REPO, f"configs/{name}.py")))
 
 
-def test_detector_reproduces_jax_fixture():
-    """Converted ``PRNGKey(7)`` params reproduce
-    ``detector_faster_rcnn_r50_fpn_1x.npz`` (read only, never written).
+@pytest.mark.parametrize("name", ["faster_rcnn_r50_fpn_1x", "mask_rcnn_r50_fpn_1x"])
+def test_detector_reproduces_jax_fixture(name):
+    """Converted ``PRNGKey(7)`` params reproduce ``detector_<name>.npz``
+    (read only, never written). Mask R-CNN's detections are Faster R-CNN's
+    (its fixture equals Faster's bit for bit): the mask branch runs on them
+    afterwards (``test_torch_port_mask.py``), but its parameters must load.
 
     Scores, labels and valid match at rtol/atol 1e-4 (they agree exactly).
     Boxes are held at an absolute 0.05 px, rtol 0: the random-weight net
@@ -196,20 +199,22 @@ def test_detector_reproduces_jax_fixture():
     """
     from test_detector_fixtures import HW, synthetic_image
 
-    cfg = fixture_cfg()
+    cfg = fixture_cfg(name)
     jb = jax_build_detector(cfg)
     images = np.asarray(synthetic_image()[None] / 255.0, np.float32)
     im_info = np.asarray([[HW[0], HW[1], 1.0]], np.float32)
     tb = {"images": jnp.asarray(images), "im_info": jnp.asarray(im_info),
           "gt_boxes": jnp.zeros((1, 8, 4)), "gt_labels": jnp.zeros((1, 8), jnp.int32),
           "gt_valid": jnp.zeros((1, 8), bool)}
+    if cfg.mask_head is not None:
+        tb["box_masks"] = jnp.zeros((1, 8, 28, 28), jnp.uint8)
     variables = jax.device_get(jax.jit(jb.init)(jax.random.PRNGKey(7), tb))
 
     model = load_flax_variables(build_detector(cfg, device="cpu"), variables)
     out = model.forward_test(T(images), T(im_info))
     dets = rcnn_postprocess(out, cfg, HW, T(im_info))
 
-    ref = np.load(os.path.join(REPO, "tests/fixtures/detector_faster_rcnn_r50_fpn_1x.npz"))
+    ref = np.load(os.path.join(REPO, f"tests/fixtures/detector_{name}.npz"))
     v = N(dets["valid"][0])
     got = {"boxes": N(dets["boxes"][0]) * v[:, None], "scores": N(dets["scores"][0]) * v,
            "labels": N(dets["labels"][0]) * v, "valid": v.astype(np.int32)}
@@ -221,7 +226,7 @@ def test_detector_reproduces_jax_fixture():
 
 
 def test_build_detector_rejects_unported():
-    for name in ("mask_rcnn_r50_fpn_1x", "retinanet_r50_fpn_1x"):
+    for name in ("rfcn_r50_1x", "retinanet_r50_fpn_1x"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")), device="cpu")
 
@@ -229,7 +234,8 @@ def test_build_detector_rejects_unported():
 def test_port_runs_without_jax(tmp_path):
     """The port imports and runs a tiny seeded forward, one training step
     (saved and restored by a checkpoint; the parallel helpers
-    single-process), and a tiny cascade forward and training step (DCN in
+    single-process), a tiny Mask R-CNN forward with its mask probabilities
+    and training step, and a tiny cascade forward and training step (DCN in
     stage 4, so the deformable conv's backward runs) with jax, flax, optax
     and the JAX package blocked: the card's machine has no jax, and the port
     keeps its own configs."""
@@ -241,7 +247,7 @@ def test_port_runs_without_jax(tmp_path):
         torch.set_num_threads(1)  # the suite's other workers share these cores
         from mxdetection_tpu_torch.config import load_config
         from mxdetection_tpu_torch.data.transforms import batch_transform
-        from mxdetection_tpu_torch.models.detectors.rcnn import rcnn_postprocess
+        from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs, rcnn_postprocess
         from mxdetection_tpu_torch.models.registry import build_detector
         from mxdetection_tpu_torch.ops.cuda import build, deform_conv, iou, nms, roi_align
         from mxdetection_tpu_torch.parallel.dist import all_gather_objects
@@ -250,12 +256,13 @@ def test_port_runs_without_jax(tmp_path):
         from mxdetection_tpu_torch.train.trainer import Trainer
         from mxdetection_tpu_torch.utils import convert
 
-        cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**{
+        small = {
             "data.pad_h": 128, "data.pad_w": 160, "data.scale": 120, "data.max_size": 160,
             "backbone.dtype": "float32", "rpn.pre_nms_top_n_test": 100,
             "rpn.post_nms_top_n_test": 50, "test.pre_nms_per_class": 100,
             "test.max_per_image": 10, "rpn.pre_nms_top_n_train": 100,
-            "rpn.post_nms_top_n_train": 50, "bbox_head.num_samples": 16})
+            "rpn.post_nms_top_n_train": 50, "bbox_head.num_samples": 16}
+        cfg = load_config("configs/faster_rcnn_r50_fpn_1x.py").override(**small)
         d = cfg.data
         g = torch.Generator().manual_seed(0)
         raw = torch.randint(0, 256, (2, 100, 150, 3), generator=g, dtype=torch.uint8)
@@ -276,6 +283,18 @@ def test_port_runs_without_jax(tmp_path):
             "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
             "gt_valid": torch.tensor([[True, False, False]] * 2)})
         assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+        mcfg = load_config("mask_rcnn_r50_fpn_1x").override(**small)
+        model = build_detector(mcfg, device="cpu", seed=0)
+        out = model.forward_test(tb["images"], tb["im_info"])
+        mdets = rcnn_postprocess(out, mcfg, (d.pad_h, d.pad_w), tb["im_info"])
+        probs = mask_probs(model, out, mdets, tb["im_info"])
+        assert probs.shape == (2, 10, 28, 28) and torch.isfinite(probs).all()
+        m = Trainer(mcfg, device="cpu", seed=0).run_step({
+            "raw": raw, "hw": hw, "flip": torch.tensor([False, True]), "gt_boxes": gtb,
+            "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
+            "gt_valid": torch.tensor([[True, False, False]] * 2),
+            "box_masks": torch.ones(2, 3, 28, 28, dtype=torch.uint8)})
+        assert torch.isfinite(m["loss"]) and float(m["loss_mask"]) > 0
         initialize_multihost()
         assert all_gather_objects(1) == [1] and data_parallel_size((-1, 1)) == 1
         ckpt = CheckpointManager(sys.argv[1])
