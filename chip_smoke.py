@@ -19,7 +19,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (40 problems x 2000 boxes, IoU 0.7), timed, and awkward problems (ragged
    N, N = 2100 and 5000 with invalid rows among the valid ones, a problem
    with no valid row, NaN, zero-area and duplicated boxes, one box that
-   suppresses every later row, IoUs exactly at the threshold); keep masks
+   suppresses every later row, IoUs exactly at the threshold), and R-FCN's
+   RPN shape (8 problems of N = 6000, IoU 0.7, timed apart); keep masks
    must be identical; logs ptxas's lines (failing on spills) and the
    sweep's SASS atomics and warp reductions; after step 9, the same check
    and times on the problems the first Faster R-CNN inference batch and
@@ -32,7 +33,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    padded rows, duplicated gt, two gt sharing their best anchor, an image
    without gt and the inside mask; with the force and without), and pass A
    at ``sample_rois``' and ``relabel_rois``' shapes; the route's peak memory
-   must stay under a byte a (box, gt) pair; logs its ptxas lines (failing on
+   must stay under a byte a (box, gt) pair; then the route at RetinaNet's
+   assignment (8 x 209,538 anchors of P3-P7 x 100 gt, the force on, no
+   inside mask) bit for bit and timed; logs its ptxas lines (failing on
    spills);
 5. holds the RoIAlign backward (K3: a block owns an output tile and sums
    the terms of the rois that touch it; K3b, the bf16 convert, is its
@@ -134,7 +137,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on the first batch's detections and K1 and K3 on the first step's mask
    rois, in f32 and bf16, each with its pairs, longest list and the pairs
    read from g;
-14. prints the card's name and power limit, the kernel table as one JSON
+14. drives the RetinaNet path (``retinanet_r50_fpn_1x``: R50, FPN P3-P7
+   with conv P6/P7, the 4 x conv256 subnets, 9 anchors a cell, 80
+   classes), its class conv scaled (``CLASS_CONV_SCALE``) so that the seeded
+   scores spread: a small f32 input and training step on the card against
+   the CPU as in 6 and 9; at 8x832x1344 in bf16 a warm-up and 20 timed
+   batches of ``forward_test`` + ``retinanet_postprocess`` (K2 once a
+   batch) and 2 warm-up and 10 timed steps of ``Trainer.run_step`` (the
+   focal loss over 209,538 anchors an image; K4's pass A and B once each a
+   step), the launches a batch and a step checked;
+15. drives the R-FCN path (``rfcn_r50_1x``: R50 with a dilated C5, a
+   single-level RPN on C4, deformable PSRoIPool over 7 x 7 bins, OHEM),
+   its class conv scaled likewise, as in 14 (K2 twice a batch; K2 once,
+   K4's pass A twice and pass B once a step; the small step with OHEM
+   keeping 16 of 32 rois), then K2 on the RPN problems of its first batch
+   (8 x N = 6000) against its plain version, timed;
+16. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -147,7 +165,7 @@ targets and loss) and traces each with ``torch.profiler``: kernel time by
 name, the device's idle share, and Chrome traces written to
 ``DIR/<path>_trace.json.gz`` (``main_path``, ``cascade_path``,
 ``train_step``, ``cascade_train``, ``sync_bn_train``, ``mask_path``,
-``mask_train``).
+``mask_train``; the RetinaNet and R-FCN paths are not split).
 ``--k3-rois FILE`` saves phase 5's rois and the training step's to FILE,
 for ``python -m mxdetection_tpu_torch.ops.cuda.k3_variants FILE`` and
 ``k1_variants --rois FILE``. ``--k2-boxes FILE`` saves the problems K2 was
@@ -459,7 +477,8 @@ def nms_problems(p: int, n: int, counts, gen, device, labels: bool = False):
 
 
 def nms_cases(device) -> list:
-    """[(name, IoU threshold, (boxes, valid))]: K2's three main-path shapes."""
+    """[(name, IoU threshold, (boxes, valid))]: K2's three main-path shapes
+    (Faster R-CNN's; RetinaNet's and R-FCN's test NMS is ``class_aware``'s)."""
     import torch
 
     gen = torch.Generator().manual_seed(2)
@@ -588,9 +607,19 @@ def k2_case(name: str, thr: float, boxes, valid) -> dict:
             "pairs": pairs, "max_abs_err": err.max().item(), **shares}
 
 
+def rfcn_rpn_case(device):
+    """R-FCN's RPN problem: one level, so one problem an image of its top
+    N = 6000 anchors (of 52,416), IoU 0.7, batch ``MAIN_BATCH``."""
+    import torch
+
+    return nms_problems(MAIN_BATCH, 6000, [6000] * MAIN_BATCH, torch.Generator().manual_seed(14),
+                        device)
+
+
 def phase_nms(device) -> dict:
     """K2 bit for bit against its plain version at the three main-path
-    shapes (timed, with the bound from each run's keep mask) and on
+    shapes (timed, with the bound from each run's keep mask; their times
+    summed), at R-FCN's RPN shape (8 x 6000, timed apart) and on
     ``nms_edge_cases``."""
     from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
     from mxdetection_tpu_torch.ops.nms import nms_mask_sorted_plain
@@ -603,6 +632,8 @@ def phase_nms(device) -> dict:
         for k in ("ms", "plain_ms", "bound_ms"):
             result[k] += case[k]
         result["bound_by"] = case["bound_by"]
+    result["rfcn_rpn"] = k2_case("rfcn_rpn", 0.7, *rfcn_rpn_case(device))
+    result["max_abs_err"] = max(result["max_abs_err"], result["rfcn_rpn"]["max_abs_err"])
     for name, thr, (boxes, valid) in nms_edge_cases(device):
         got = nms_mask_sorted_cuda(boxes, valid, thr)
         ref = nms_mask_sorted_plain(boxes, valid, thr)
@@ -652,6 +683,62 @@ def k4_rpn_case(device, gen):
         inside[None].expand(b, n).contiguous()
 
 
+def k4_retinanet(device, gen) -> dict:
+    """K4's route at RetinaNet's assignment: the 209,538 anchors of P3-P7
+    of an 832x1344 canvas (one set, expanded over the batch), the RPN
+    case's gt rows, IoU 0.5 / 0.4, the low-quality force on and no
+    ``box_valid``, as ``retinanet_loss`` calls it: labels, matched and
+    max_iou bit for bit against the dense plain assigner, timed beside it,
+    with the route's peak memory and its bound on this data."""
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.detectors.retinanet import make_anchors
+    from mxdetection_tpu_torch.ops import matching
+    from mxdetection_tpu_torch.ops.cuda import iou as iou_cuda
+
+    anchors = make_anchors(load_config("retinanet_r50_fpn_1x"), (832, 1344), device=device)
+    _, gt, gt_valid, _ = k4_rpn_case(device, gen)
+    b, n, g = gt.shape[0], anchors.shape[0], gt.shape[1]
+    boxes = anchors.expand(b, n, 4)
+    kw = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, match_low_quality=True)
+    route = lambda: matching.assign_max_iou(boxes, gt, gt_valid, **kw)  # noqa: E731
+    plain = lambda: matching.assign_max_iou_dense(boxes, gt, gt_valid, **kw)  # noqa: E731
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (iou_cuda.pass_a_count.n, iou_cuda.pass_b_count.n)
+    got = route()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = (iou_cuda.pass_a_count.n - counts[0], iou_cuda.pass_b_count.n - counts[1])
+    ref = plain()
+    same = [torch.equal(x, y) for x, y in zip(got, ref)]
+    overlap = int((matching.masked_iou(boxes, gt, gt_valid) > 0).sum())
+    n_valid = int(gt_valid.sum())
+    ms = time_ms(route)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    nbytes = n * 16 + b * g * (16 + 1 + 4) + b * n * (4 + 8 + 4)
+    bound_ms, bound_by = bound(nbytes, 2.0 * (overlap * 14 + n * n_valid))
+    pos = int((ref.labels == 1).sum())
+    forced = int(((ref.labels == 1) & (ref.max_iou < 0.5)).sum())
+    log(f"K4 assign, RetinaNet shape {(b, n, g)}, low-quality True, no box_valid: "
+        f"matched/labels/max_iou bit-identical to the dense plain version: {same}; {pos} "
+        f"positive ({forced} forced below 0.5); pass A + pass B {launches[0]} + {launches[1]} "
+        f"launches; route {ms:.4f} ms, dense plain {plain_ms:.4f} ms; {overlap} of "
+        f"{n * n_valid} (box, valid gt) pairs overlap; bound {bound_ms:.4f} ms ({bound_by}); "
+        f"peak {peak / 2**20:.1f} MiB above the inputs")
+    if not all(same):
+        fail("K4 assign differs from the dense plain assigner at RetinaNet's shape")
+    if launches != (1, 1):
+        fail(f"K4 at RetinaNet's shape: {launches} launches of pass A and B, expected (1, 1)")
+    if peak >= b * n * g:
+        fail(f"K4 assign at RetinaNet's shape took {peak} bytes, a byte a (box, gt) pair")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "overlap_pairs": overlap, "peak_mib": peak / 2**20,
+            "max_abs_err": (got.max_iou - ref.max_iou).abs().max().item()}
+
+
 def k4_facts() -> None:
     """Log ptxas's lines of K4 (``max_iou_kernel``, one instantiation a
     mode), failing on spills."""
@@ -666,7 +753,8 @@ def phase_iou(device) -> dict:
     low-quality force, and its pass A (each row's max and first argmax)
     against the dense row max at ``sample_rois``' shape (8 x 1100 x 100: the
     gt then 1000 proposals) and ``relabel_rois``' (8 x 512 x 100); the RPN
-    route's peak memory must stay under a byte a (box, gt) pair."""
+    route's peak memory must stay under a byte a (box, gt) pair; then the
+    route at RetinaNet's shape (``k4_retinanet``)."""
     import torch
 
     from mxdetection_tpu_torch.ops import matching
@@ -744,6 +832,8 @@ def phase_iou(device) -> dict:
         if not all(same):
             fail(f"K4 pass A differs from the dense row max at the {what} shape")
         result[what] = {"ms": ms}
+    result["retinanet"] = k4_retinanet(device, gen)
+    result["max_abs_err"] = max(result["max_abs_err"], result["retinanet"]["max_abs_err"])
     return result
 
 
@@ -1090,15 +1180,42 @@ def k1_on_rois(device, cap: dict, what: str, dtypes, seed: int) -> dict:
 # phase 6: inference path
 
 
+# Seeded random weights score every class near its prior: RetinaNet's sigmoid
+# scores lie in 0.0099-0.013 (its prior bias), R-FCN's softmax within 0.002 of
+# 1/81 (seed 0, 256x320, f32, on the CPU): under the test threshold of 0.05
+# and, among thousands of candidates, closer to each other than the card's
+# and the CPU's rounding. Their class convs' weights are scaled, so that the
+# scores spread as a trained net's (there, RetinaNet's top 40 lie in
+# 0.65-0.81 and R-FCN's in 0.69-0.88).
+CLASS_CONV_SCALE = {"retinanet": ("head.cls_score", 30.0), "rfcn": ("rfcn_cls", 100.0)}
+
+
+def seeded_model(cfg, device, train: bool = False):
+    """``build_detector(cfg, seed=0)`` on ``device``, its class conv scaled
+    by ``CLASS_CONV_SCALE`` where the config has one."""
+    import torch
+
+    from mxdetection_tpu_torch.models.registry import build_detector
+
+    model = build_detector(cfg, device=device, seed=0, train=train)
+    if cfg.detector in CLASS_CONV_SCALE:
+        name, k = CLASS_CONV_SCALE[cfg.detector]
+        with torch.no_grad():
+            model.get_submodule(name).weight.mul_(k)
+    return model
+
+
 def detect(model, cfg, raw, hw, dtype, masks: bool = True):
-    """One batch: ``batch_transform``, ``forward_test``, ``rcnn_postprocess``
-    and, for a model with a mask head unless ``masks`` is false,
-    ``mask_probs`` (``dets["masks"]``). Returns (dets, outputs); the outputs
-    keep the batch's ``im_info``."""
+    """One batch: ``batch_transform``, ``forward_test``, the detector's
+    postprocess (``detector_fns``: ``rcnn_postprocess`` or
+    ``retinanet_postprocess``) and, for a model with a mask head unless
+    ``masks`` is false, ``mask_probs`` (``dets["masks"]``). Returns (dets,
+    outputs); the outputs keep the batch's ``im_info``."""
     import torch
 
     from mxdetection_tpu_torch.data.transforms import batch_transform
-    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs, rcnn_postprocess
+    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs
+    from mxdetection_tpu_torch.models.registry import detector_fns
 
     d = cfg.data
     pad_hw = (d.pad_h, d.pad_w)
@@ -1110,8 +1227,8 @@ def detect(model, cfg, raw, hw, dtype, masks: bool = True):
                              max_size=d.max_size, mean=d.mean, std=d.std, dtype=dtype)
         out = model.forward_test(tb["images"], tb["im_info"])
         out["im_info"] = tb["im_info"]
-        dets = rcnn_postprocess(out, cfg, pad_hw, tb["im_info"])
-        if masks and model.mask_head is not None:
+        dets = detector_fns(cfg).postprocess(out, cfg, pad_hw, tb["im_info"])
+        if masks and getattr(model, "mask_head", None) is not None:
             dets["masks"] = mask_probs(model, out, dets, tb["im_info"])
         return dets, out
 
@@ -1180,11 +1297,11 @@ def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
                  what: str = "small f32 input") -> None:
     """A 256x320 f32 input through the port on the card (kernels) and on the
     CPU (plain versions, which the CPU tests hold against the JAX package),
-    with the mask probabilities where the config has a mask head."""
+    with the mask probabilities where the config has a mask head; the seeded
+    weights as ``seeded_model`` makes them."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
-    from mxdetection_tpu_torch.models.registry import build_detector
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1192,7 +1309,7 @@ def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
     raw, hw = small_input()
     dets = {}
     for dev in ("cpu", device):
-        model = build_detector(cfg, device="cpu", seed=0).to(dev)
+        model = seeded_model(cfg, "cpu").to(dev)
         dets[dev] = detect(model, cfg, raw.to(dev), hw.to(dev), torch.float32)[0]
     check_parity(dets["cpu"], dets[device], hw, what)
 
@@ -1229,9 +1346,12 @@ def drive(model, cfg, raw, hw, dtype, counters, card: str, what: str) -> tuple:
     log(f"{what}: {TIMED_BATCHES} batches of {MAIN_BATCH}x832x1344 bf16, ms per batch: "
         f"p25 {q[0]:.2f}, median {q[1]:.2f}, p75 {q[2]:.2f}, max {max(times):.2f}; "
         f"median {MAIN_BATCH * 1e3 / q[1]:.1f} images/s ({card})")
-    log(f"{what}: {int(out['roi_valid'].sum())}/{out['roi_valid'].numel()} valid proposals, "
-        f"pyramid max |P| {max(p.abs().max().item() for p in out['pyramid']):.1f}, "
-        f"{n_valid} valid detections in the last batch; launches {launches}; "
+    log(f"{what}: "
+        + (f"{int(out['roi_valid'].sum())}/{out['roi_valid'].numel()} valid proposals, "
+           if "roi_valid" in out else "")
+        + (f"pyramid max |P| {max(p.abs().max().item() for p in out['pyramid']):.1f}, "
+           if "pyramid" in out else "")
+        + f"{n_valid} valid detections in the last batch; launches {launches}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, dets, out, times
 
@@ -1833,13 +1953,15 @@ class ReplayDraws:
 
 
 def grad_norms(model) -> dict:
+    """The gradient's norm in each top-level module of ``model`` that has
+    parameters (the JAX fixtures' ``gnorm_<module>``)."""
     import torch
 
     out = {}
-    mods = ["backbone", "fpn", "rpn", *(f"bbox_head{i}" for i in range(model.num_stages))]
-    for mod in mods + (["mask_head"] if model.mask_head is not None else []):
-        gs = [p.grad.double() for p in getattr(model, mod).parameters() if p.grad is not None]
-        out[f"gnorm_{mod}"] = float(torch.sqrt(sum((g * g).sum() for g in gs)))
+    for mod, m in model.named_children():
+        gs = [p.grad.double() for p in m.parameters() if p.grad is not None]
+        if any(True for _ in m.parameters()):
+            out[f"gnorm_{mod}"] = float(torch.sqrt(sum((g * g).sum() for g in gs)))
     return out
 
 
@@ -1868,30 +1990,31 @@ def small_train_step(cfg, state: dict, batch: dict, draws, device, what: str) ->
 
 
 def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
-                       what: str = "small f32 train step") -> tuple:
+                       what: str = "small f32 train step", overrides=None) -> tuple:
     """One f32 training step at 256x320, batch 2, on the card (kernels) and
     on the CPU (plain versions, which the CPU tests hold against the JAX
-    package), from the same weights (seed 0, or ``state``) and the same
-    random draws. Returns what ``check_remat`` needs to repeat the card's step."""
+    package), from the same weights (``seeded_model``'s, or ``state``) and
+    the same random draws, the config overridden by ``SMALL_TRAIN_OVERRIDES``
+    and then ``overrides``. Returns what ``check_remat`` needs to repeat the
+    card's step."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
-    from mxdetection_tpu_torch.models.registry import build_detector
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = load_config(name, SMALL_TRAIN_OVERRIDES)
+    cfg = load_config(name, {**SMALL_TRAIN_OVERRIDES, **(overrides or {})})
     batch = train_batch(2, (240, 300), torch.Generator().manual_seed(7), "cpu")
     batch = {k: v[:, :8] if k.startswith("gt_") or k == "box_masks" else v
              for k, v in batch.items()}
     replay = ReplayDraws(8)
     if state is None:
-        model = build_detector(cfg, device="cpu", seed=0, train=True)
+        model = seeded_model(cfg, "cpu", train=True)
         state = {k: v.clone() for k, v in model.state_dict().items()}
     res = {dev: small_train_step(cfg, state, batch, replay.on(dev), dev, what)
            for dev in ("cpu", device)}
     cpu, gpu = res["cpu"][0], res[device][0]
-    discrete = [k for k in cpu if k == "num_pos_rois" or k.startswith("rcnn_acc")]
+    discrete = [k for k in cpu if k in ("num_pos_rois", "num_pos") or k.startswith("rcnn_acc")]
     worst = {}
     for k, r in cpu.items():
         if k in discrete:
@@ -2649,6 +2772,69 @@ def phase_mask_path(device, card: str, counters: list, train_counters: list,
     return launches, k1, k3
 
 
+# --------------------------------------------------------------------------
+# phases 14 and 15: RetinaNet, R-FCN
+
+
+def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
+                   train_counters: list, per_batch: dict, per_step: dict,
+                   train_overrides: dict | None = None, nms_capture=None) -> dict:
+    """One more detector of the zoo, ``name``, with ``seeded_model``'s
+    weights: the card against the CPU at 256x320 in f32 (detections, and
+    one training step with ``train_overrides``), then at 8x832x1344 in bf16
+    ``TIMED_BATCHES`` batches of ``forward_test`` + the registry's
+    postprocess on the Faster path's canvases (``counters``, inside
+    ``nms_capture`` if given) and ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` steps of
+    ``Trainer.run_step`` on the Faster step's batch (``train_counters``).
+    Fails unless the launches a batch and a step are ``per_batch`` and
+    ``per_step``. Returns {path: launches}."""
+    import contextlib
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small_parity(device, name, f"{label} small f32 input")
+    small_train_parity(device, name, what=f"{label} small f32 train step",
+                       overrides=train_overrides)
+
+    cfg = load_config(name)
+    dtype = getattr(torch, cfg.backbone.dtype)
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, device)
+    log(f"{label} path: {cfg.name}, {cfg.backbone.dtype}, seeded init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(4)  # the Faster R-CNN path's canvases
+    raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen,
+                        dtype=torch.uint8).to(device)
+    hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
+    with nms_capture or contextlib.nullcontext():
+        launches = {f"{label}_inference": drive(model, cfg, raw, hw, dtype, counters, card,
+                                                f"{label} path")[0]}
+    got = {k: n / (TIMED_BATCHES + 1) for k, n in launches[f"{label}_inference"].items()}
+    log(f"{label} path: launches per batch {got}")
+    if got != per_batch:
+        fail(f"{label} path: expected launches per batch {per_batch}, got {got}")
+    del model
+
+    cfg = load_config(name, {"data.batch_size_per_device": MAIN_BATCH})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, seeded_model(cfg, device, train=True), device=device,
+                      steps_per_epoch=117266 // MAIN_BATCH)
+    log(f"{label} train path: f32 master weights, {cfg.backbone.dtype} compute, seeded init "
+        f"in {time.perf_counter() - t0:.1f} s")
+    batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
+    launches[f"{label}_train"] = drive_train(trainer, batch, train_counters, card,
+                                             f"{label} train path", None, "")[0]
+    got = {k: n / TRAIN_STEPS for k, n in launches[f"{label}_train"].items()}
+    if got != per_step:
+        fail(f"{label} train path: expected launches per step {per_step}, got {got}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2737,6 +2923,19 @@ def main() -> int:
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
         iou_cuda.pass_b_count], args.profile)
     paths.update(mask_paths)
+    k4_counters = [iou_cuda.launch_count, iou_cuda.pass_a_count, iou_cuda.pass_b_count]
+    paths.update(phase_zoo_path(
+        device, card, "retinanet_r50_fpn_1x", "retinanet", [nms_cuda.launch_count], k4_counters,
+        {"nms": 1.0}, {"iou": 2.0, "iou_pass_a": 1.0, "iou_pass_b": 1.0}))
+    rfcn_nms = CaptureNms(1)
+    paths.update(phase_zoo_path(
+        device, card, "rfcn_r50_1x", "rfcn", [nms_cuda.launch_count],
+        [nms_cuda.launch_count, *k4_counters], {"nms": 2.0},
+        {"nms": 1.0, "iou": 3.0, "iou_pass_a": 2.0, "iou_pass_b": 1.0},
+        # OHEM selective at the small step's 32 rois, as in its train fixture
+        train_overrides={"bbox_head.ohem_keep": 16}, nms_capture=rfcn_nms))
+    boxes, valid, thr = rfcn_nms.calls[0]
+    k2["rfcn_rpn"]["main_path"] = k2_case("rfcn_rpn first batch", thr, boxes, valid)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res
@@ -2769,7 +2968,9 @@ def main() -> int:
         # and shares on the problems of a Faster batch and training step
         {**entry("nms_mask_sorted", "nms.cu", K2_REPLACES, "nms", k2),
          "main_path_proposals": {name: {k: v for k, v in case.items() if k != "max_abs_err"}
-                                 for name, case in k2["main_path_proposals"].items()}},
+                                 for name, case in k2["main_path_proposals"].items()},
+         # R-FCN's RPN problem: 8 x N = 6000, synthetic and the first batch's own
+         "rfcn_rpn": k2["rfcn_rpn"]},
         # K3's times are of bf16 g and gradients at phase 5's rois; beside
         # them its time, pairs and longest list at one training step's rois
         {**entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,
@@ -2788,7 +2989,9 @@ def main() -> int:
          "launches_pass_a": sum(n.get("iou_pass_a", 0) for n in paths.values()),
          "launches_pass_b": sum(n.get("iou_pass_b", 0) for n in paths.values()),
          "overlap_pairs": k4["overlap_pairs"], "peak_mib": k4["peak_mib"],
-         "row_max_ms": {k: k4[k]["ms"] for k in ("sample_rois", "relabel_rois")}},
+         "row_max_ms": {k: k4[k]["ms"] for k in ("sample_rois", "relabel_rois")},
+         # the route at RetinaNet's assignment, 8 x 209,538 x 100
+         "retinanet_route": {k: v for k, v in k4["retinanet"].items() if k != "max_abs_err"}},
         # times, bounds and cuDNN's F.conv2d yardstick are per batch of the
         # cascade path: the sum over its DCN layers of each shape
         {**entry("deform_conv", "deform_conv.cu", K5_REPLACES, "deform_conv", k5[1]),

@@ -79,17 +79,18 @@ class DeformConv(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1 with identity/projection shortcut; the 3x3
-    is a ``DeformConv`` with ``use_dcn``."""
+    """1x1 -> 3x3(stride, dilation) -> 1x1 with identity/projection
+    shortcut; the 3x3 is a ``DeformConv`` with ``use_dcn``."""
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 use_dcn: bool = False, norm: Callable[[int], nn.Module] = FrozenBatchNorm):
+                 use_dcn: bool = False, norm: Callable[[int], nn.Module] = FrozenBatchNorm,
+                 dilation: int = 1):
         super().__init__()
         out = channels * 4
         self.conv1 = conv(in_channels, channels, 1)
         self.bn1 = norm(channels)
-        self.conv2 = (DeformConv(channels, channels, stride) if use_dcn
-                      else conv(channels, channels, 3, stride))
+        self.conv2 = (DeformConv(channels, channels, stride, dilation) if use_dcn
+                      else conv(channels, channels, 3, stride, dilation=dilation))
         self.bn2 = norm(channels)
         self.conv3 = conv(channels, out, 1)
         self.bn3 = norm(out)
@@ -125,7 +126,11 @@ def _recomputing(block: nn.Module):
 
 
 class ResNet(nn.Module):
-    """(B, H, W, 3) NHWC image -> (C2, C3, C4, C5) NHWC maps at strides 4..32."""
+    """(B, H, W, 3) NHWC image -> (C2, C3, C4, C5) NHWC maps at strides 4..32.
+
+    ``dilated_c5`` (R-FCN): stage 4 runs at stride 1 with dilation 2 in every
+    block's 3x3 (padding 2), so C5 stays at stride 16; its first block's
+    projection is then a stride-1 1x1."""
 
     def __init__(self, depth: int = 50, norm_kind: str = "frozen_bn", frozen_stages: int = 1,
                  dcn_stages: Sequence[bool] = (False, False, False, False),
@@ -133,8 +138,6 @@ class ResNet(nn.Module):
         super().__init__()
         if s2d_stem:
             raise NotImplementedError("the space-to-depth stem is a TPU measure and is not ported")
-        if dilated_c5:
-            raise NotImplementedError("dilated C5 is not ported yet (ROADMAP Queue 1 item 14: R-FCN)")
         self.frozen_stages, self.remat = frozen_stages, remat
         norm = make_norm(norm_kind)
         self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -143,11 +146,13 @@ class ResNet(nn.Module):
         self.block_names = []
         for stage, (n_blocks, width) in enumerate(zip(STAGE_BLOCKS[depth], (64, 128, 256, 512))):
             names = []
+            dilated = stage == 3 and dilated_c5
             for b in range(n_blocks):
-                stride = 2 if (stage > 0 and b == 0) else 1
+                stride = 2 if (stage > 0 and b == 0 and not dilated) else 1
                 name = f"layer{stage + 1}_block{b}"
                 self.add_module(name, Bottleneck(in_ch, width, stride,
-                                                 use_dcn=bool(dcn_stages[stage]), norm=norm))
+                                                 use_dcn=bool(dcn_stages[stage]), norm=norm,
+                                                 dilation=2 if dilated else 1))
                 in_ch = width * 4
                 names.append(name)
             self.block_names.append(names)

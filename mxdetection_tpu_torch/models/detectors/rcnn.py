@@ -1,4 +1,5 @@
 """Faster, Mask and Cascade R-CNN — port of ``mxdetection_tpu.models.detectors.rcnn``.
+``rcnn_loss`` and ``rcnn_postprocess`` also serve R-FCN (``rfcn.py``).
 
 Inference: ResNet (with deformable stages for the Cascade R-CNN DCN config)
 -> FPN P2-P6 -> RPN -> proposals (per-level top-k, decode, clip, NMS, merged
@@ -19,7 +20,9 @@ first takes the rois the previous stage refined (decoded from its detached
 deltas) and labels them by IoU at its threshold (``relabel_rois``, K4's pass
 A, no subsampling); the loss weighs stage i by ``stage_loss_weights[i]``. The
 random draws of the two samplers come from an injectable source
-(``ops/matching.py``). OHEM is ROADMAP Queue 1 item 14.
+(``ops/matching.py``). With ``bbox_head.ohem`` each image's stage loss keeps
+only its ``ohem_keep`` hardest valid rois (online hard example mining,
+R-FCN's recipe).
 
 Mask R-CNN (``cfg.mask_head``): in training the mask branch runs on the
 first ``round(num_samples * pos_fraction)`` sampled rois of stage 0, the fg
@@ -39,7 +42,7 @@ from torch import nn
 
 from ...config import Config
 
-from ...losses.losses import mask_bce_loss, smooth_l1_loss
+from ...losses.losses import mask_bce_loss, ohem_select, smooth_l1_loss
 from ...ops import anchors as anchor_lib
 from ...ops import boxes as box_lib
 from ...ops import matching
@@ -51,6 +54,9 @@ from ..backbones.resnet import ResNet
 from ..heads.bbox_head import BBoxHead, MaskHead
 from ..heads.rpn import RPNHead
 from ..necks.fpn import FPN
+
+
+RCNN_DETECTORS = ("faster_rcnn", "mask_rcnn", "cascade_rcnn")
 
 
 def rpn_anchor_cfg(cfg: Config) -> anchor_lib.AnchorGenerator:
@@ -117,10 +123,8 @@ class RCNN(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         c = cfg
-        if (c.detector not in ("faster_rcnn", "mask_rcnn", "cascade_rcnn")
-                or (c.mask_head is not None and c.detector != "mask_rcnn")):
-            raise NotImplementedError(f"detector {c.detector!r} is not ported yet "
-                                      "(ROADMAP Queue 1 items 12-14)")
+        if c.detector not in RCNN_DETECTORS:
+            raise ValueError(f"RCNN builds {RCNN_DETECTORS}, not {c.detector!r}")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, c.backbone.dtype)
         self.backbone = ResNet(depth=c.backbone.depth, norm_kind=c.backbone.norm,
@@ -291,15 +295,15 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
     force on), subsamples ``rpn.batch_size`` of them, and takes BCE on the
     objectness and smooth-L1 (beta 1/9) on the positives' deltas; each
     second stage takes softmax CE over its rois and smooth-L1 on the
-    positives' class-specific (cascade: class-agnostic) deltas, and adds to
-    the total weighted by ``cascade.stage_loss_weights`` (1 without a
-    cascade); Mask R-CNN adds ``mask_loss`` as ``loss_mask``. Everything is
-    f32, as the JAX loss.
+    positives' class-specific (cascade, R-FCN: class-agnostic) deltas, and
+    adds to the total weighted by ``cascade.stage_loss_weights`` (1 without
+    a cascade); Mask R-CNN adds ``mask_loss`` as ``loss_mask``. With
+    ``bbox_head.ohem`` (R-FCN) a stage's two sums run over each image's
+    ``ohem_keep`` hardest valid rois by their cls + reg loss (``keep``, and
+    ``keep & pos`` for the reg term), divided by ``max(sum(keep), 1)``; the
+    accuracy stays over every valid roi. Everything is f32, as the JAX loss.
     """
     c = cfg
-    if c.bbox_head.ohem:
-        raise NotImplementedError("bbox_head.ohem is not ported yet (ROADMAP Queue 1 item 14: "
-                                  "R-FCN)")
     rpn_cls = torch.cat([o.reshape(o.shape[0], -1) for o in outputs["rpn_cls"]], 1).float()
     rpn_reg = torch.cat([o.reshape(o.shape[0], -1, 4) for o in outputs["rpn_reg"]], 1).float()
     b, n = rpn_cls.shape
@@ -345,8 +349,15 @@ def rcnn_loss(outputs: dict, tb: dict, draws: matching.Draws, cfg: Config) -> tu
         l1 = torch.where(pos_i, l1, 0.0)
         norm = valid.sum(-1).clamp(min=1).float()
         acc = torch.where(valid, cls.argmax(-1) == labels_i, False).sum(-1) / norm
-        metrics[f"loss_rcnn_cls{i}"] = (nll.sum(-1) / norm).mean()
-        metrics[f"loss_rcnn_reg{i}"] = (l1.sum(-1) / norm).mean() * c.bbox_head.loss_bbox_weight
+        if c.bbox_head.ohem:  # the hardest ohem_keep valid rois by cls + reg loss
+            keep = ohem_select(nll + l1, valid, c.bbox_head.ohem_keep)
+            n_keep = keep.sum(-1).clamp(min=1).float()
+            cls_loss = torch.where(keep, nll, 0.0).sum(-1) / n_keep
+            reg_loss = torch.where(keep & pos_i, l1, 0.0).sum(-1) / n_keep
+        else:
+            cls_loss, reg_loss = nll.sum(-1) / norm, l1.sum(-1) / norm
+        metrics[f"loss_rcnn_cls{i}"] = cls_loss.mean()
+        metrics[f"loss_rcnn_reg{i}"] = reg_loss.mean() * c.bbox_head.loss_bbox_weight
         metrics[f"rcnn_acc{i}"] = acc.mean()
         total = total + w * (metrics[f"loss_rcnn_cls{i}"] + metrics[f"loss_rcnn_reg{i}"])
     if "mask_logits" in outputs:

@@ -13,9 +13,14 @@ from ..layers import conv, init_layer_
 
 
 class RPNHead(nn.Module):
-    def __init__(self, num_anchors: int = 3, channels: int = 256):
+    """``in_channels`` is the width of the maps it reads (default
+    ``channels``): R-FCN's 512-wide head reads the 1024-wide C4."""
+
+    def __init__(self, num_anchors: int = 3, channels: int = 256,
+                 in_channels: int | None = None):
         super().__init__()
-        self.rpn_conv = conv(channels, channels, 3, use_bias=True)
+        self.rpn_conv = conv(channels if in_channels is None else in_channels, channels, 3,
+                             use_bias=True)
         self.rpn_cls = conv(channels, num_anchors, 1, use_bias=True)
         self.rpn_reg = conv(channels, num_anchors * 4, 1, use_bias=True)
 

@@ -1,12 +1,38 @@
-"""Detector registry — port of ``mxdetection_tpu.models.registry`` for the
-detectors ported so far: Faster R-CNN (frozen BN or SyncBN), Mask R-CNN
-and Cascade R-CNN with deformable convs, inference and training."""
+"""Detector registry — port of ``mxdetection_tpu.models.registry``: every
+detector of the zoo, inference and training. ``cfg.detector`` picks the
+module (``build_detector``) and its loss and postprocess
+(``detector_fns``, the JAX ``DetectorBundle``'s ``loss_fn`` and
+``postprocess``): Faster R-CNN (frozen BN or SyncBN), Mask R-CNN and
+Cascade R-CNN with deformable convs (``RCNN``), R-FCN (``RFCN``; the R-CNN
+loss and postprocess) and RetinaNet (``RetinaNet``; its focal loss and
+dense postprocess). Every detector takes ``forward_test(images, im_info)``
+and ``forward_train(tb, draws)``."""
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..config import Config
+
+
+class DetectorFns(NamedTuple):
+    loss: Callable         # (forward_train's outputs, tb, draws, cfg) -> (loss, metrics)
+    postprocess: Callable  # (forward_test's outputs, cfg, image_hw, im_info) -> detections
+
+
+def detector_fns(cfg: Config) -> DetectorFns:
+    """``cfg.detector`` -> its loss and postprocess."""
+    if cfg.detector == "retinanet":
+        from .detectors.retinanet import retinanet_loss, retinanet_postprocess
+
+        return DetectorFns(retinanet_loss, retinanet_postprocess)
+    if cfg.detector in ("faster_rcnn", "mask_rcnn", "cascade_rcnn", "rfcn"):
+        from .detectors.rcnn import rcnn_loss, rcnn_postprocess
+
+        return DetectorFns(rcnn_loss, rcnn_postprocess)
+    raise ValueError(f"unknown detector {cfg.detector!r}")
 
 
 def require_device(device) -> torch.device:
@@ -35,15 +61,17 @@ def build_detector(cfg: Config, device="cuda", seed: int | None = None,
     weights get the JAX package's initialisers from a ``torch.Generator``
     (the card has no JAX to convert weights from); otherwise load a
     converted ``state_dict`` (``utils/convert.py``)."""
-    if cfg.detector not in ("faster_rcnn", "mask_rcnn", "cascade_rcnn"):
-        raise NotImplementedError(f"detector {cfg.detector!r} is not ported yet "
-                                  "(ROADMAP Queue 1 items 12-14)")
     from .backbones.resnet import DeformConv
-    from .detectors.rcnn import RCNN
+    from .detectors.rcnn import RCNN, RCNN_DETECTORS
+    from .detectors.retinanet import RetinaNet
+    from .detectors.rfcn import RFCN
     from .layers import NORMS
 
+    classes = {**dict.fromkeys(RCNN_DETECTORS, RCNN), "retinanet": RetinaNet, "rfcn": RFCN}
+    if cfg.detector not in classes:
+        raise ValueError(f"unknown detector {cfg.detector!r}")
     device = require_device(device)
-    model = RCNN(cfg)
+    model = classes[cfg.detector](cfg)
     if seed is not None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last).train(train)

@@ -3,7 +3,9 @@
 ``Trainer.run_step`` does what the JAX package's jitted ``shard_map`` step
 does, eagerly, on each replica (one process per device): raw uint8 batch ->
 ``batch_transform`` (on the canvas of the batch's orientation) ->
-``sanitize_gt`` -> ``forward_train`` -> ``rcnn_loss`` -> backward -> the
+``sanitize_gt`` -> ``forward_train`` -> the detector's loss
+(``models/registry.py::detector_fns``: ``rcnn_loss`` for the R-CNN family
+and R-FCN, ``retinanet_loss`` for RetinaNet) -> backward -> the
 gradients, metrics and loss averaged over the replicas -> the optimizer
 update. The optimizer is written out to match the optax chain
 ``clip_by_global_norm -> add_decayed_weights -> sgd(momentum)``
@@ -29,8 +31,7 @@ import torch.distributed as dist
 
 from ..config import Config
 from ..data.transforms import batch_transform
-from ..models.detectors.rcnn import rcnn_loss
-from ..models.registry import build_detector, require_device
+from ..models.registry import build_detector, detector_fns, require_device
 from ..ops.matching import Draws, TorchDraws
 from ..parallel.mesh import data_parallel_size
 from .schedule import warmup_multistep
@@ -94,8 +95,9 @@ def sanitize_gt(tb: dict, min_size: float = 1.0) -> dict:
 
 
 class Trainer:
-    """Data-parallel trainer of a Faster, Mask or Cascade R-CNN
-    (``build_detector(train=True)``), one replica per process.
+    """Data-parallel trainer of any detector of the zoo (Faster, Mask or
+    Cascade R-CNN, R-FCN, RetinaNet; ``build_detector(train=True)``), one
+    replica per process.
 
     ``model=None`` builds one from ``cfg`` on ``device`` with seeded
     weights (``seed``); a given model is moved to ``device``. The device is
@@ -122,6 +124,7 @@ class Trainer:
                 for t in [*self.params, *self.model.buffers()]:
                     dist.broadcast(t, src=0)
         self.optimizer, self.lr_fn = make_optimizer(cfg, self.params, steps_per_epoch)
+        self.loss_fn = detector_fns(cfg).loss
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.draws = TorchDraws(gen)
 
@@ -159,7 +162,7 @@ class Trainer:
         for p in self.params:
             p.grad = None
         outputs = self.model.forward_train(tb, draws)
-        loss, metrics = rcnn_loss(outputs, tb, draws, self.cfg)
+        loss, metrics = self.loss_fn(outputs, tb, draws, self.cfg)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()

@@ -4,7 +4,10 @@ Input: the ``{"params": ..., "batch_stats": ...}`` tree of
 ``mxdetection_tpu`` as nested dicts of numpy arrays (``jax.device_get`` of
 the variables gives that). The port names its modules after the flax module
 tree, so a variable at ``params/backbone/layer1_block0/conv1/kernel`` lands
-at ``backbone.layer1_block0.conv1.weight``:
+at ``backbone.layer1_block0.conv1.weight``; RetinaNet's ``fpn/extra_p6``,
+``fpn/extra_p7`` and ``head/cls_conv{i}``, ``reg_conv{i}``, ``cls_score``,
+``bbox_pred``, and R-FCN's ``rpn``, ``conv_new``, ``rfcn_cls``,
+``rfcn_bbox`` and ``rfcn_offset`` take the same rules:
 
 - conv kernels HWIO -> OIHW;
 - a transposed conv's kernel (flax ``ConvTranspose``, (kh, kw, in, out),

@@ -226,19 +226,26 @@ def test_detector_reproduces_jax_fixture(name):
 
 
 def test_build_detector_rejects_unported():
-    for name in ("rfcn_r50_1x", "retinanet_r50_fpn_1x"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_detector(load_config(os.path.join(REPO, f"configs/{name}.py")), device="cpu")
+    """Every zoo detector is ported; a ``cfg.detector`` the registry does
+    not know raises, in ``build_detector`` and in ``detector_fns``."""
+    from mxdetection_tpu_torch.models.registry import detector_fns
+
+    cfg = load_config(os.path.join(REPO, "configs/rfcn_r50_1x.py")).override(detector="yolo")
+    with pytest.raises(ValueError, match="unknown detector 'yolo'"):
+        build_detector(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown detector 'yolo'"):
+        detector_fns(cfg)
 
 
 def test_port_runs_without_jax(tmp_path):
     """The port imports and runs a tiny seeded forward, one training step
     (saved and restored by a checkpoint; the parallel helpers
     single-process), a tiny Mask R-CNN forward with its mask probabilities
-    and training step, and a tiny cascade forward and training step (DCN in
-    stage 4, so the deformable conv's backward runs) with jax, flax, optax
-    and the JAX package blocked: the card's machine has no jax, and the port
-    keeps its own configs."""
+    and training step, a tiny cascade forward and training step (DCN in
+    stage 4, so the deformable conv's backward runs), and a tiny RetinaNet
+    and R-FCN forward and training step each, through the registry's
+    postprocess, with jax, flax, optax and the JAX package blocked: the
+    card's machine has no jax, and the port keeps its own configs."""
     script = textwrap.dedent("""
         import sys
         for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
@@ -248,7 +255,9 @@ def test_port_runs_without_jax(tmp_path):
         from mxdetection_tpu_torch.config import load_config
         from mxdetection_tpu_torch.data.transforms import batch_transform
         from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs, rcnn_postprocess
-        from mxdetection_tpu_torch.models.registry import build_detector
+        from mxdetection_tpu_torch.models.detectors import retinanet, rfcn
+        from mxdetection_tpu_torch.models.registry import build_detector, detector_fns
+        from mxdetection_tpu_torch.ops import psroi
         from mxdetection_tpu_torch.ops.cuda import build, deform_conv, iou, nms, roi_align
         from mxdetection_tpu_torch.parallel.dist import all_gather_objects
         from mxdetection_tpu_torch.parallel.mesh import data_parallel_size, initialize_multihost
@@ -318,6 +327,30 @@ def test_port_runs_without_jax(tmp_path):
             "gt_valid": torch.tensor([[True, False, False]] * 2)})
         assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
         assert "loss_rcnn_cls2" in m
+        batch = {"raw": raw, "hw": hw, "flip": torch.tensor([False, True]), "gt_boxes": gtb,
+                 "gt_labels": torch.zeros(2, 3, dtype=torch.int64),
+                 "gt_valid": torch.tensor([[True, False, False]] * 2)}
+        for name, extra in (("retinanet_r50_fpn_1x", {}),
+                            ("rfcn_r50_1x", {"rpn.pre_nms_top_n_test": 100,
+                                             "rpn.post_nms_top_n_test": 50,
+                                             "rpn.pre_nms_top_n_train": 100,
+                                             "rpn.post_nms_top_n_train": 50,
+                                             "bbox_head.num_samples": 16,
+                                             "bbox_head.ohem_keep": 8})):
+            zcfg = load_config(name).override(**{
+                "data.pad_h": 128, "data.pad_w": 160, "data.scale": 120,
+                "data.max_size": 160, "backbone.dtype": "float32",
+                "test.pre_nms_per_class": 100, "test.max_per_image": 10,
+                # seeded random weights score every class near its prior
+                # (0.0099 and 1/81), under the default threshold of 0.05
+                "test.score_thr": 0.0, **extra})
+            model = build_detector(zcfg, device="cpu", seed=0)
+            dets = detector_fns(zcfg).postprocess(
+                model.forward_test(tb["images"], tb["im_info"]), zcfg, (d.pad_h, d.pad_w),
+                tb["im_info"])
+            assert torch.isfinite(dets["boxes"]).all() and int(dets["valid"].sum()) > 0
+            m = Trainer(zcfg, device="cpu", seed=0).run_step(batch)
+            assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, (name, m)
         counts = (roi_align.launch_count, roi_align.bwd_launch_count, nms.launch_count,
                   iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count,
                   deform_conv.wgrad_launch_count, deform_conv.wgrad_s2_launch_count,
