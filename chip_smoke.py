@@ -152,7 +152,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    K4's pass A twice and pass B once a step; the small step with OHEM
    keeping 16 of 32 rois), then K2 on the RPN problems of its first batch
    (8 x N = 6000) against its plain version, timed;
-16. prints the card's name and power limit, the kernel table as one JSON
+16. drives the evaluation path (``eval/evaluator.py``): the native RLE
+   codec and COCO matcher must build from ``native/`` (into the package's
+   ``_build/``); the ``Evaluator``'s per-image records of Mask R-CNN on 2
+   synthetic images at 256x320 in f32 on the card against the CPU port's
+   (labels equal, boxes within 1e-2 px, scores within 1e-4, every pasted
+   mask's RLE IoU >= 0.99, the bbox and segm tables within 1e-3); then
+   ``Evaluator.run`` of ``mask_rcnn_r50_fpn_1x`` (bf16, 8x832x1344 canvases,
+   seeded weights) with bbox and segm over 32 synthetic images of 400-640 px
+   with 3-6 objects each (the first batch untimed): images/s, the forward's
+   seconds and the host's paste + RLE seconds, K1 twice and K2 twice a
+   batch, both tables; then ``faster_rcnn_r50_fpn_1x`` with Gaussian
+   Soft-NMS, box voting, flip TTA and a second scale (4 variants) for one
+   timed batch, its peak memory, and Soft-NMS's time beside greedy NMS's
+   and K2's on the candidates of one variant; then ``faster_rcnn_r50_voc``
+   on 16 synthetic VOC images under the VOC protocol;
+17. drives the training loop: ``Trainer.fit_epochs`` of
+   ``faster_rcnn_r50_fpn_1x`` (batch 8, bf16, seeded weights) over the
+   port's ``DetectionLoader`` on 24 synthetic images for one epoch under
+   ``torch.profiler`` (step ms, the device's idle share, one metrics line a
+   step, K1-K4's launch counts rising), the loader's images/s alone, a
+   checkpoint, and ``python -m mxdetection_tpu_torch.tools.eval
+   --checkpoint ... --synthetic 8`` in a subprocess, which must exit 0
+   with the COCO table;
+18. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -2835,6 +2858,314 @@ def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: the evaluation path
+
+
+EVAL_IMAGES, VOC_IMAGES, FIT_IMAGES = 32, 16, 24
+
+
+def check_eval_records(cpu, gpu, what: str) -> None:
+    """The card's ``Evaluator`` records and tables against the CPU port's:
+    labels equal, boxes within 1e-2 px, scores within 1e-4, every pasted
+    mask's RLE IoU with the CPU one >= 0.99, each table's keys within 1e-3."""
+    import numpy as np
+
+    from mxdetection_tpu_torch.eval import rle
+
+    (crecs, cres), (grecs, gres) = cpu, gpu
+    grecs = {r["image_id"]: r for r in grecs}
+    n, box_err, score_err, worst_iou, n_masks = 0, 0.0, 0.0, 1.0, 0
+    for c in crecs:
+        g = grecs[c["image_id"]]
+        if not np.array_equal(c["labels"], g["labels"]):
+            fail(f"{what}: image {c['image_id']} labels differ: {c['labels']} vs {g['labels']}")
+        n += len(c["labels"])
+        if len(c["labels"]):
+            box_err = max(box_err, float(np.abs(c["boxes"] - g["boxes"]).max()))
+            score_err = max(score_err, float(np.abs(c["scores"] - g["scores"]).max()))
+        for a, b in zip(c["rles"] or [], g["rles"] or []):
+            if rle.rle_area(a) or rle.rle_area(b):
+                worst_iou = min(worst_iou, rle.rle_iou(a, b))
+                n_masks += 1
+    table_err = max(abs(cres[k] - gres[k]) for k in cres if k not in ("images_per_sec", "segm"))
+    if "segm" in cres:
+        table_err = max(table_err, *(abs(cres["segm"][k] - gres["segm"][k]) for k in cres["segm"]))
+    log(f"{what} card vs CPU: {len(crecs)} images, {n} detections, max box err {box_err:.3e}, "
+        f"max score err {score_err:.3e}, {n_masks} non-empty masks, least RLE IoU "
+        f"{worst_iou:.4f}, max table err {table_err:.3e} (bounds 1e-2 px, 1e-4, 0.99, 1e-3)")
+    if n == 0 or (cres.get("segm") is not None and n_masks == 0):
+        fail(f"{what}: no detections (or no mask) to compare")
+    if box_err > 1e-2 or score_err > 1e-4 or worst_iou < 0.99 or table_err > 1e-3:
+        fail(f"{what}: the card's evaluation differs from the CPU port's")
+
+
+def eval_parity(device, tmp: str) -> None:
+    """Mask R-CNN's ``Evaluator`` on 2 synthetic images at 256x320 in f32,
+    seeded weights, on the card (kernels) and on the CPU (plain versions)."""
+    import os
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.data.coco import CocoDataset, make_synthetic_coco
+    from mxdetection_tpu_torch.eval.evaluator import Evaluator
+
+    ann, img_dir = make_synthetic_coco(os.path.join(tmp, "small"), num_images=2,
+                                       size_range=(200, 300), num_classes=80, seed=3,
+                                       split="val", min_objects=3)
+    ds = CocoDataset(ann, img_dir, with_masks=True)
+    cfg = load_config(MASK).override(**SMALL_OVERRIDES)
+    out = []
+    for dev in ("cpu", device):
+        ev = Evaluator(cfg, seeded_model(cfg, "cpu").to(dev), ds, batch_size=2,
+                       raw_hw=(320, 320), with_masks=True)
+        res = ev.run(verbose=False)
+        out.append((ev.records, res))
+    check_eval_records(out[0], out[1], "eval small f32")
+
+
+class CaptureTestNms:
+    """While active, keeps the arguments of the first call of
+    ``ops/nms.py::class_aware_nms_from_cfg`` (the postprocess reads it from
+    its module at each call): the test NMS's candidates of a batch."""
+
+    def __enter__(self):
+        from mxdetection_tpu_torch.ops import nms as nms_lib
+
+        self.module, self.orig, self.first = nms_lib, nms_lib.class_aware_nms_from_cfg, None
+        inner = self.orig
+
+        def wrapped(t, boxes, scores, labels, valid=None):
+            if self.first is None:
+                self.first = (boxes.clone(), scores.clone(), labels.clone())
+            return inner(t, boxes, scores, labels, valid=valid)
+
+        nms_lib.class_aware_nms_from_cfg = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.class_aware_nms_from_cfg = self.orig
+
+
+def soft_nms_times(t, cand, card: str) -> dict:
+    """Gaussian Soft-NMS (plain torch: 100 dependent picks), box voting,
+    greedy class-aware NMS (K2 and its torch around it) and K2 alone on
+    one batch's test-NMS candidates, by CUDA events."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import nms as nms_lib
+    from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
+
+    boxes, scores, labels = cand
+    kw = dict(method="gaussian", iou_thr=t.nms_thr, sigma=t.soft_sigma, score_thr=t.score_thr)
+    kept = nms_lib.class_aware_soft_nms(boxes, scores, labels, t.max_per_image, **kw)
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * nms_lib.class_offsets(boxes, None)
+    valid, masked = nms_lib._mask_scores(scores, None, t.score_thr)
+    _, order = nms_lib._sort_desc(masked)
+    sorted_boxes = torch.gather(shifted, 1, order[..., None].expand(*order.shape, 4))
+    sorted_valid = torch.gather(valid, 1, order)
+    res = {
+        "problems": list(boxes.shape[:2]),
+        "soft_nms_ms": time_ms(lambda: nms_lib.class_aware_soft_nms(
+            boxes, scores, labels, t.max_per_image, **kw)),
+        "box_voting_ms": time_ms(lambda: nms_lib.box_voting(
+            kept[0], kept[2], kept[3], boxes, scores, labels, t.vote_thr)),
+        "greedy_nms_ms": time_ms(lambda: nms_lib.class_aware_nms(
+            boxes, scores, labels, t.nms_thr, t.max_per_image, score_thr=t.score_thr)),
+        "k2_ms": time_ms(lambda: nms_mask_sorted_cuda(sorted_boxes, sorted_valid, t.nms_thr)),
+    }
+    log(f"eval soft-NMS ({card}): on {res['problems'][0]} x {res['problems'][1]} candidates, "
+        f"Gaussian Soft-NMS {res['soft_nms_ms']:.3f} ms, box voting {res['box_voting_ms']:.3f} "
+        f"ms; greedy class-aware NMS {res['greedy_nms_ms']:.3f} ms, of which K2 "
+        f"{res['k2_ms']:.3f} ms")
+    return res
+
+
+def run_eval(cfg, model, ds, counters, what: str, card: str, per_batch: dict | None = None,
+             **kw) -> tuple:
+    """``Evaluator.run`` with every launch count set to 0 just before and read
+    just after; fails without detections or, given ``per_batch``, unless the
+    launches a batch are those. Returns (launches, results, evaluator)."""
+    import torch
+
+    from mxdetection_tpu_torch.eval.evaluator import Evaluator
+
+    ev = Evaluator(cfg, model, ds, batch_size=MAIN_BATCH, raw_hw=(640, 640), **kw)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ev.run(verbose=True)
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.n for c in counters}
+    n_batches = ev.loader.steps_per_epoch()
+    n_dets = sum(len(r["labels"]) for r in ev.records)
+    tm = ev.timing
+    log(f"{what} ({card}): {res['num_images']} images in {n_batches} batches of {MAIN_BATCH} "
+        f"({wall:.1f} s with the tables); steady state {tm['timed_images']} images in "
+        f"{tm['timed_batches']} batches: {res['images_per_sec']:.2f} images/s, forward "
+        f"{tm['forward_s']:.3f} s, paste + RLE {tm['paste_rle_s']:.3f} s; {n_dets} detections; "
+        f"RLE codec {tm['rle']}, COCO matcher {tm['matcher']}; launches {launches}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if n_dets == 0:
+        fail(f"{what}: no detections")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{what} never launched the {name} kernel")
+    if per_batch is not None:
+        got = {k: n / n_batches for k, n in launches.items()}
+        if got != per_batch:
+            fail(f"{what}: expected launches per batch {per_batch}, got {got}")
+    return launches, res, ev
+
+
+def phase_eval_path(device, card: str, counters: list) -> tuple:
+    """Phase 16 (see the module's docstring). Returns ({path: launches}, the
+    Soft-NMS and K2 times of ``soft_nms_times``)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.data.coco import CocoDataset, make_synthetic_coco
+    from mxdetection_tpu_torch.data.voc import VocDataset, make_synthetic_voc
+    from mxdetection_tpu_torch.eval import coco_eval, rle_native
+    from mxdetection_tpu_torch.models.registry import build_detector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if rle_native.implementation() != "native" or coco_eval.native_matcher() is None:
+        fail("the native RLE codec or COCO matcher did not build from native/ (see the log)")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_parity(device, tmp)
+        t0 = time.perf_counter()
+        ann, img_dir = make_synthetic_coco(os.path.join(tmp, "coco"), num_images=EVAL_IMAGES,
+                                           size_range=(400, 641), num_classes=80, seed=0,
+                                           split="val", min_objects=3, max_objects=6)
+        ds = CocoDataset(ann, img_dir, with_masks=True)
+        log(f"eval path: {EVAL_IMAGES} synthetic images written and parsed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = load_config(MASK)
+        model = build_detector(cfg, device=device, seed=0)
+        launches["eval_mask"] = run_eval(cfg, model, ds, counters, "eval mask path", card,
+                                         {"roi_align": 2.0, "nms": 2.0}, with_masks=True)[0]
+        del model
+
+        cfg = load_config("faster_rcnn_r50_fpn_1x", {
+            "test.nms_method": "soft_gaussian", "test.bbox_vote": True, "test.flip_tta": True,
+            "test.scales_tta": (600,)})
+        model = build_detector(cfg, device=device, seed=0)
+        sub = CocoDataset(ann, img_dir)  # seed 0 has 16 landscape images: 2 batches
+        sub.records = [r for r in sub.records if r.width >= r.height][:2 * MAIN_BATCH]
+        with CaptureTestNms() as cap:
+            launches["eval_soft_tta"], _, ev = run_eval(
+                cfg, model, sub, counters, "eval Soft-NMS + box voting + TTA path", card)
+        if len(ev.tta_variants) != 4 or ev.timing["timed_batches"] != 1:
+            fail(f"eval TTA: {len(ev.tta_variants)} variants, "
+                 f"{ev.timing['timed_batches']} timed batches (expected 4 and 1)")
+        soft = soft_nms_times(cfg.test, cap.first, card)
+        del model
+
+        cfg = load_config("faster_rcnn_r50_voc")
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_images=VOC_IMAGES,
+                                  size_range=(300, 501), seed=1, split=cfg.data.val_split)
+        model = build_detector(cfg, device=device, seed=0)
+        launches["eval_voc"] = run_eval(cfg, model, VocDataset(root, split=cfg.data.val_split),
+                                         counters, "eval VOC path", card, {"roi_align": 1.0,
+                                                                            "nms": 2.0},
+                                         protocol="voc")[0]
+    return launches, soft
+
+
+# --------------------------------------------------------------------------
+# phase 17: the training loop
+
+
+def phase_fit_path(device, card: str, counters: list) -> dict:
+    """Phase 17 (see the module's docstring). Returns {path: launches}."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.data.coco import CocoDataset, make_synthetic_coco
+    from mxdetection_tpu_torch.data.loader import DetectionLoader
+    from mxdetection_tpu_torch.train.checkpoint import CheckpointManager
+    from mxdetection_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config("faster_rcnn_r50_fpn_1x", {"data.batch_size_per_device": MAIN_BATCH})
+    with tempfile.TemporaryDirectory() as tmp:
+        # seed 2: 16 landscape and 8 portrait images, 3 full batches
+        ann, img_dir = make_synthetic_coco(os.path.join(tmp, "train"), num_images=FIT_IMAGES,
+                                           size_range=(400, 641), num_classes=80, seed=2,
+                                           min_objects=3)
+        loader = DetectionLoader(CocoDataset(ann, img_dir), batch_size=MAIN_BATCH,
+                                 max_gt=cfg.data.max_gt, seed=cfg.train.seed,
+                                 num_workers=cfg.data.num_workers, flip=True,
+                                 orient_buckets=True)
+        steps = loader.steps_per_epoch()
+        t0 = time.perf_counter()
+        n = sum(len(b["image_ids"]) for b in loader.epoch(0))
+        loader_ips = n / (time.perf_counter() - t0)
+        trainer = Trainer(cfg, device=device, seed=0, steps_per_epoch=steps)
+        metrics_file = os.path.join(tmp, "metrics.jsonl")
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            history = trainer.fit_epochs(loader, 1, log_every=1, metrics_file=metrics_file)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {c.name: c.n for c in counters}
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        with open(metrics_file) as fh:
+            lines = [json.loads(line) for line in fh]
+        step_ms = [MAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in history]
+        log(f"fit_epochs path ({card}): {len(history)} steps of {MAIN_BATCH} over "
+            f"{FIT_IMAGES} images in {wall_ms:.1f} ms under torch.profiler; ms per step "
+            + ", ".join(f"{ms:.1f}" for ms in step_ms)
+            + f" (the first pays the warm-up); device busy {busy_ms:.1f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f}; the loader alone {loader_ips:.1f} images/s "
+            f"({cfg.data.num_workers} workers), the loop "
+            f"{MAIN_BATCH * len(history) * 1e3 / wall_ms:.1f} images/s; losses "
+            + ", ".join(f"{m['loss']:.4f}" for m in history) + f"; launches {launches}")
+        if len(history) != steps or lines != history or not all(
+                torch.isfinite(torch.tensor(m["loss"])) for m in history):
+            fail(f"fit_epochs: {len(history)} logged steps of {steps}, {len(lines)} metrics "
+                 "lines, or a loss not finite")
+        for name, k in launches.items():
+            if k == 0:
+                fail(f"fit_epochs never launched the {name} kernel")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        CheckpointManager(ckpt_dir).save(trainer, force=True)
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "mxdetection_tpu_torch.tools.eval",
+                              "--config", "faster_rcnn_r50_fpn_1x", "--checkpoint", ckpt_dir,
+                              "--synthetic", "8"], capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in res.stdout.strip().splitlines():
+            log(f"  tools.eval: {line}")
+        log(f"tools.eval from the checkpoint: exit {res.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if res.returncode != 0 or "Average Precision  (AP)" not in res.stdout:
+            fail(f"tools.eval --checkpoint failed:\n{res.stderr[-3000:]}")
+    return {"fit_epochs": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2936,6 +3267,17 @@ def main() -> int:
         train_overrides={"bbox_head.ohem_keep": 16}, nms_capture=rfcn_nms))
     boxes, valid, thr = rfcn_nms.calls[0]
     k2["rfcn_rpn"]["main_path"] = k2_case("rfcn_rpn first batch", thr, boxes, valid)
+    t0 = time.perf_counter()
+    eval_paths, soft_nms = phase_eval_path(device, card, [roi_cuda.launch_count,
+                                                          nms_cuda.launch_count])
+    paths.update(eval_paths)
+    t1 = time.perf_counter()
+    paths.update(phase_fit_path(device, card, [
+        roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
+        roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
+        iou_cuda.pass_b_count]))
+    log(f"phase 16 (evaluation) took {t1 - t0:.1f} s, phase 17 (training loop) "
+        f"{time.perf_counter() - t1:.1f} s")
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res
@@ -2970,7 +3312,10 @@ def main() -> int:
          "main_path_proposals": {name: {k: v for k, v in case.items() if k != "max_abs_err"}
                                  for name, case in k2["main_path_proposals"].items()},
          # R-FCN's RPN problem: 8 x N = 6000, synthetic and the first batch's own
-         "rfcn_rpn": k2["rfcn_rpn"]},
+         "rfcn_rpn": k2["rfcn_rpn"],
+         # the eval path's test NMS: K2 beside Gaussian Soft-NMS (plain torch)
+         # on one TTA variant's candidates
+         "eval_soft_nms": soft_nms},
         # K3's times are of bf16 g and gradients at phase 5's rois; beside
         # them its time, pairs and longest list at one training step's rois
         {**entry("roi_align_bwd", "roi_align_bwd.cu", K3_REPLACES, "roi_align_bwd", k3_err,

@@ -16,8 +16,12 @@ Sorting and top-k use ``torch.sort(..., stable=True)``: ties are broken by
 lowest index first, as ``jnp.argsort`` and ``lax.top_k`` do. Random-weight
 detectors score many boxes exactly 1.0, so tie order decides the output.
 
-Only hard ("greedy") NMS is ported; Soft-NMS and box voting are ROADMAP
-Queue 1 item 15.
+Soft-NMS (``soft_nms``, ``class_aware_soft_nms``) and box voting
+(``box_voting``) are the test-time options of ``class_aware_nms_from_cfg``.
+The JAX package runs Soft-NMS as a ``lax.scan`` of ``max_out`` picks with no
+Pallas kernel, so the port runs the same picks as plain torch ops on either
+device: each pick is an argmax, a gather, an IoU row, a decay and a scatter
+over every problem of the batch at once.
 """
 
 from __future__ import annotations
@@ -145,19 +149,116 @@ def class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Ten
     return out_boxes, out_scores, out_labels, out_valid
 
 
+def _soft_nms_scan(iou_boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+                   method: str, iou_thr: float, sigma: float,
+                   valid: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Soft-NMS pick loop over problems (..., N) -> (picked indices,
+    picked scores), each (..., max_out).
+
+    Each pick takes the current score argmax (the first index among equal
+    scores, as ``jnp.argmax``), emits it, and decays every remaining score by
+    f(IoU with the pick). Decay only lowers scores, so the emitted scores are
+    non-increasing and ``max_out`` picks are the top ``max_out`` of the whole
+    algorithm.
+    """
+    if method not in ("linear", "gaussian"):
+        raise ValueError(f"unknown soft-NMS method {method!r}")
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    neg_inf = torch.tensor(-float("inf"), device=scores.device)
+    s = torch.where(valid, scores.float(), neg_inf)
+    bxs = iou_boxes.float()
+    area = (bxs[..., 2] - bxs[..., 0]).clamp(min=0) * (bxs[..., 3] - bxs[..., 1]).clamp(min=0)
+    picks, picked = [], []
+    for _ in range(max_out):
+        i = torch.argmax(s, dim=-1, keepdim=True)                     # (..., 1)
+        picks.append(i)
+        picked.append(torch.gather(s, -1, i))
+        bi = torch.gather(bxs, -2, i[..., None].expand(*i.shape, 4))  # (..., 1, 4)
+        lt = torch.maximum(bxs[..., :2], bi[..., :2])
+        rb = torch.minimum(bxs[..., 2:], bi[..., 2:])
+        wh = (rb - lt).clamp(min=0.0)
+        inter = wh[..., 0] * wh[..., 1]
+        iou = inter / (area + torch.gather(area, -1, i) - inter).clamp(min=1e-12)
+        if method == "linear":
+            decay = torch.where(iou > iou_thr, 1.0 - iou, torch.ones_like(iou))
+        else:
+            decay = torch.exp(-(iou * iou) / sigma)
+        # -inf (padding, picked) stays -inf where decay is 0 (identical
+        # boxes): -inf * 0 would be NaN
+        s = torch.where(torch.isfinite(s), s * decay, neg_inf)
+        s = s.scatter(-1, i, neg_inf.expand(i.shape))
+    return torch.cat(picks, -1), torch.cat(picked, -1)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int, *,
+             method: str = "linear", iou_thr: float = 0.3, sigma: float = 0.5,
+             score_thr: float = 1e-3, valid: torch.Tensor | None = None):
+    """Soft-NMS (Bodla et al. 2017) batched over leading dims: overlapping
+    scores decay instead of dying. boxes (..., N, 4), scores (..., N) ->
+    fixed-size (boxes, scores, valid) of length ``max_out``; picks decayed to
+    ``score_thr`` or below are dropped; the picked boxes are not moved."""
+    idx, svals = _soft_nms_scan(boxes, scores, max_out, method, iou_thr, sigma, valid)
+    out_valid = svals > score_thr
+    out_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    out_boxes = torch.where(out_valid[..., None], out_boxes, torch.zeros_like(out_boxes))
+    return out_boxes, torch.where(out_valid, svals, torch.zeros_like(svals)), out_valid
+
+
+def class_aware_soft_nms(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
+                         max_out: int, *, method: str = "linear", iou_thr: float = 0.3,
+                         sigma: float = 0.5, score_thr: float = 1e-3,
+                         valid: torch.Tensor | None = None):
+    """Per-class Soft-NMS by ``class_aware_nms``'s coordinate offset, batched
+    over leading dims: boxes of two classes never overlap, so they never
+    decay each other. Returns (boxes, scores, labels, valid) of length
+    ``max_out``, labels -1 where invalid."""
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * class_offsets(boxes, valid)
+    idx, svals = _soft_nms_scan(shifted, scores, max_out, method, iou_thr, sigma, valid)
+    out_valid = svals > score_thr
+    out_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    out_boxes = torch.where(out_valid[..., None], out_boxes, torch.zeros_like(out_boxes))
+    out_labels = torch.where(out_valid, torch.gather(labels, -1, idx),
+                             torch.full_like(idx, -1).to(labels.dtype))
+    return (out_boxes, torch.where(out_valid, svals, torch.zeros_like(svals)), out_labels,
+            out_valid)
+
+
+def box_voting(kept_boxes: torch.Tensor, kept_labels: torch.Tensor, kept_valid: torch.Tensor,
+               pool_boxes: torch.Tensor, pool_scores: torch.Tensor, pool_labels: torch.Tensor,
+               vote_thr: float, pool_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Box voting (Gidaris & Komodakis 2015), batched over leading dims: each
+    kept box (..., K, 4) becomes the score-weighted mean of the pool's boxes
+    (..., N, 4) of its class with IoU >= ``vote_thr``. Scores are left
+    alone; a box with no weight, or invalid, keeps its coordinates."""
+    if pool_valid is None:
+        pool_valid = torch.ones_like(pool_scores, dtype=torch.bool)
+    iou = pairwise_iou(kept_boxes, pool_boxes)                          # (..., K, N)
+    same = kept_labels[..., :, None] == pool_labels[..., None, :]
+    m = (iou >= vote_thr) & same & pool_valid[..., None, :] & kept_valid[..., :, None]
+    w = torch.where(m, pool_scores.clamp(min=0.0)[..., None, :], torch.zeros_like(iou))
+    num = w @ pool_boxes.to(w.dtype)                                    # (..., K, 4)
+    den = w.sum(dim=-1, keepdim=True)
+    voted = torch.where(den > 0, num / den.clamp(min=1e-12), kept_boxes)
+    return torch.where(kept_valid[..., None], voted, kept_boxes)
+
+
 def class_aware_nms_from_cfg(t, boxes: torch.Tensor, scores: torch.Tensor,
                              labels: torch.Tensor, valid: torch.Tensor | None = None):
-    """Test-time class-aware NMS by ``TestCfg.nms_method``. Only "greedy" is
-    ported; Soft-NMS and box voting wait for ROADMAP Queue 1 item 15."""
-    if t.nms_method.startswith("soft_"):
-        raise NotImplementedError(
-            f"test.nms_method={t.nms_method!r} is not ported yet "
-            "(ROADMAP Queue 1 item 15: Soft-NMS and box voting)")
-    if t.nms_method != "greedy":
+    """Test-time class-aware NMS by ``TestCfg.nms_method`` ("greedy",
+    "soft_linear" or "soft_gaussian"), then box voting over the candidates
+    handed to this call when ``TestCfg.bbox_vote``; batched over leading dims."""
+    if t.nms_method == "greedy":
+        out = class_aware_nms(boxes, scores, labels, t.nms_thr, t.max_per_image,
+                              valid=valid, score_thr=t.score_thr)
+    elif t.nms_method.startswith("soft_"):
+        out = class_aware_soft_nms(boxes, scores, labels, t.max_per_image,
+                                   method=t.nms_method[len("soft_"):], iou_thr=t.nms_thr,
+                                   sigma=t.soft_sigma, score_thr=t.score_thr, valid=valid)
+    else:
         raise ValueError(f"unknown test.nms_method {t.nms_method!r}")
     if getattr(t, "bbox_vote", False):
-        raise NotImplementedError(
-            "test.bbox_vote is not ported yet (ROADMAP Queue 1 item 15: "
-            "Soft-NMS and box voting)")
-    return class_aware_nms(boxes, scores, labels, t.nms_thr, t.max_per_image,
-                           valid=valid, score_thr=t.score_thr)
+        ob, os_, ol, ov = out
+        ob = box_voting(ob, ol, ov, boxes, scores, labels, t.vote_thr, pool_valid=valid)
+        out = (ob, os_, ol, ov)
+    return out

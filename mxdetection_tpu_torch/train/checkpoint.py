@@ -65,6 +65,17 @@ class CheckpointManager:
             dist.barrier()  # the file exists before any rank may restore it
         return wrote
 
+    def load_model(self, model: torch.nn.Module, step: int | None = None) -> int:
+        """Load only the model's weights of the checkpoint of ``step`` (the
+        latest by default) into ``model``, cast to its dtypes: an eval model
+        from a training run's checkpoint. Returns the step."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        state = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        model.load_state_dict(state["model"], strict=True)
+        return state["step"]
+
     def restore(self, trainer, step: int | None = None) -> int:
         """Load the checkpoint of ``step`` (the latest by default) into
         ``trainer`` on its own device; returns the step."""

@@ -244,11 +244,15 @@ def test_port_runs_without_jax(tmp_path):
     and training step, a tiny cascade forward and training step (DCN in
     stage 4, so the deformable conv's backward runs), and a tiny RetinaNet
     and R-FCN forward and training step each, through the registry's
-    postprocess, with jax, flax, optax and the JAX package blocked: the
-    card's machine has no jax, and the port keeps its own configs."""
+    postprocess, then the command-line tools on a synthetic set at 128x128
+    (``tools.train`` for 2 steps, ``tools.eval`` from its checkpoint,
+    ``tools.demo`` on one of its images), with jax, flax, optax, the JAX
+    package and Pillow blocked: the card's machine has no jax and no
+    Pillow, and the port keeps its own configs."""
     script = textwrap.dedent("""
+        import json
         import sys
-        for blocked in ("jax", "flax", "optax", "mxdetection_tpu"):
+        for blocked in ("jax", "flax", "optax", "mxdetection_tpu", "PIL"):
             sys.modules[blocked] = None
         import torch
         torch.set_num_threads(1)  # the suite's other workers share these cores
@@ -355,8 +359,33 @@ def test_port_runs_without_jax(tmp_path):
                   iou.launch_count, deform_conv.launch_count, deform_conv.s2_launch_count,
                   deform_conv.wgrad_launch_count, deform_conv.wgrad_s2_launch_count,
                   deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count)
+        import contextlib, io, os
+        from mxdetection_tpu_torch.tools import demo as tdemo, eval as teval, train as ttrain
+        out = os.path.join(sys.argv[1], "out")
+        tiny = ["data.pad_h=128", "data.pad_w=128", "data.scale=96", "data.max_size=128",
+                "data.max_gt=8", "backbone.dtype='float32'", "rpn.pre_nms_top_n_train=100",
+                "rpn.post_nms_top_n_train=50", "rpn.pre_nms_top_n_test=100",
+                "rpn.post_nms_top_n_test=50", "bbox_head.num_samples=16",
+                "test.pre_nms_per_class=100", "test.max_per_image=10", "test.score_thr=0.0",
+                "train.log_every=1", "data.num_workers=2", f"train.checkpoint_dir='{out}'"]
+        common = ["--config", "faster_rcnn_r50_fpn_1x", "--device", "cpu", "--override", *tiny]
+        assert ttrain.main(["--synthetic", "4", "--epochs", "1", *common]) == 0
+        work = os.path.join(out, "faster_rcnn_r50_fpn_1x")
+        with open(os.path.join(work, "metrics.jsonl")) as fh:
+            assert [json.loads(line)["step"] for line in fh] == [1, 2]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            assert teval.main(["--synthetic", "4", "--batch-size", "2", "--checkpoint",
+                               os.path.join(work, "ckpt"), *common]) == 0
+            assert tdemo.main(["--image", os.path.join(work, "synthetic", "images_train2017",
+                                                       "000000.ppm"),
+                               "--out", os.path.join(out, "demo.ppm"), "--score-thr", "0",
+                               "--checkpoint", os.path.join(work, "ckpt"), *common]) == 0
+        text = text.getvalue()
+        assert "weights of step 2" in text and "Average Precision  (AP)" in text, text
+        assert "with 10 detections" in text, text
         assert all(c.n == 0 for c in counts)
-        assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu")
+        assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mxdetection_tpu", "PIL")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", int(dets["valid"].sum()))
     """)
@@ -367,20 +396,31 @@ def test_port_runs_without_jax(tmp_path):
     assert res.stdout.startswith("ok")
 
 
-def imported_modules(path):
+def imported_modules(path, top_level_only=False):
+    """The absolute modules ``path`` imports; with ``top_level_only`` only
+    the imports that run when it is imported (not inside a function)."""
     with open(path) as fh:
         tree = ast.parse(fh.read(), path)
-    for node in ast.walk(tree):
+    todo = [tree]
+    while todo:
+        node = todo.pop()
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        if not (top_level_only and isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                                     ast.Lambda))):
+            todo.extend(ast.iter_child_nodes(node))
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "mxdetection_tpu_torch"])
 def test_imports_stay_in_the_port(path):
     """Neither ``chip_smoke.py`` nor any module of the port names jax, flax,
-    optax or any module of the JAX package: the port keeps its own copies."""
+    optax or any module of the JAX package: the port keeps its own copies.
+    No module of the port, so none that ``chip_smoke.py`` imports, imports
+    Pillow when it is imported (the card's machine has none): only
+    ``data/images.py`` names it, inside the functions that decode or write
+    a format other than PPM."""
     root = os.path.join(REPO, path)
     files = ([root] if root.endswith(".py") else
              [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")])
@@ -392,3 +432,7 @@ def test_imports_stay_in_the_port(path):
         for mod in imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "mxdetection_tpu"), (f, mod)
+            if top == "PIL":
+                assert os.path.relpath(f, REPO) == "mxdetection_tpu_torch/data/images.py", f
+        for mod in imported_modules(f, top_level_only=True):
+            assert mod.split(".")[0] != "PIL", (f, mod)

@@ -299,9 +299,14 @@ def test_nms_dispatch_and_unported_methods():
         tnms.nms_mask_sorted(torch.zeros(1, 4, 4, device="meta"),
                              torch.ones(1, 4, dtype=torch.bool, device="meta"), 0.5)
     z = torch.zeros(1, 8, 4), torch.zeros(1, 8), torch.zeros(1, 8, dtype=torch.int64)
+    # Soft-NMS and box voting are ported: on all-zero candidates they keep
+    # nothing, as the JAX dispatch does
     for cfg in (EvalCfg(nms_method="soft_linear"), EvalCfg(bbox_vote=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnms.class_aware_nms_from_cfg(cfg, *z)
+        got = tnms.class_aware_nms_from_cfg(cfg, *z)
+        ref = jnms.class_aware_nms_from_cfg(cfg, *(np.asarray(x[0]) for x in z))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(N(g)[0], N(r))
+        assert not N(got[3]).any()
     with pytest.raises(ValueError):
         tnms.class_aware_nms_from_cfg(EvalCfg(nms_method="median"), *z)
 
