@@ -139,8 +139,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    read from g;
 14. drives the RetinaNet path (``retinanet_r50_fpn_1x``: R50, FPN P3-P7
    with conv P6/P7, the 4 x conv256 subnets, 9 anchors a cell, 80
-   classes), its class conv scaled (``CLASS_CONV_SCALE``) so that the seeded
-   scores spread: a small f32 input and training step on the card against
+   classes), its class conv scaled
+   (``tools/common.py::CLASS_CONV_SCALE``) so that the seeded scores
+   spread: a small f32 input and training step on the card against
    the CPU as in 6 and 9; at 8x832x1344 in bf16 a warm-up and 20 timed
    batches of ``forward_test`` + ``retinanet_postprocess`` (K2 once a
    batch) and 2 warm-up and 10 timed steps of ``Trainer.run_step`` (the
@@ -175,7 +176,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    checkpoint, and ``python -m mxdetection_tpu_torch.tools.eval
    --checkpoint ... --synthetic 8`` in a subprocess, which must exit 0
    with the COCO table;
-18. prints the card's name and power limit, the kernel table as one JSON
+18. runs the throughput entry points, each as its own process (torch's
+   default precision flags, not the TF32-off state of the phases above):
+   ``python -m mxdetection_tpu_torch.tools.bench_infer`` with no arguments
+   (the headline: Faster R-CNN at batch 32, 832x1344, bf16), ``bench_infer
+   --config NAME --batch 8`` for each of the seven zoo configs and
+   ``bench_train NAME 2`` for the six trained ones (Faster VOC left out);
+   each must exit 0 with a JSON last line whose value is finite and
+   positive, and launch every kernel its config's batch or step launches
+   in the phases above (its ``launches`` log line); every line is logged;
+19. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -1203,57 +1213,15 @@ def k1_on_rois(device, cap: dict, what: str, dtypes, seed: int) -> dict:
 # phase 6: inference path
 
 
-# Seeded random weights score every class near its prior: RetinaNet's sigmoid
-# scores lie in 0.0099-0.013 (its prior bias), R-FCN's softmax within 0.002 of
-# 1/81 (seed 0, 256x320, f32, on the CPU): under the test threshold of 0.05
-# and, among thousands of candidates, closer to each other than the card's
-# and the CPU's rounding. Their class convs' weights are scaled, so that the
-# scores spread as a trained net's (there, RetinaNet's top 40 lie in
-# 0.65-0.81 and R-FCN's in 0.69-0.88).
-CLASS_CONV_SCALE = {"retinanet": ("head.cls_score", 30.0), "rfcn": ("rfcn_cls", 100.0)}
-
-
-def seeded_model(cfg, device, train: bool = False):
-    """``build_detector(cfg, seed=0)`` on ``device``, its class conv scaled
-    by ``CLASS_CONV_SCALE`` where the config has one."""
-    import torch
-
-    from mxdetection_tpu_torch.models.registry import build_detector
-
-    model = build_detector(cfg, device=device, seed=0, train=train)
-    if cfg.detector in CLASS_CONV_SCALE:
-        name, k = CLASS_CONV_SCALE[cfg.detector]
-        with torch.no_grad():
-            model.get_submodule(name).weight.mul_(k)
-    return model
-
-
 def detect(model, cfg, raw, hw, dtype, masks: bool = True):
-    """One batch: ``batch_transform``, ``forward_test``, the detector's
-    postprocess (``detector_fns``: ``rcnn_postprocess`` or
-    ``retinanet_postprocess``) and, for a model with a mask head unless
-    ``masks`` is false, ``mask_probs`` (``dets["masks"]``). Returns (dets,
-    outputs); the outputs keep the batch's ``im_info``."""
-    import torch
+    """One batch, ``tools/common.py::infer_batch``: ``batch_transform``,
+    ``forward_test``, the detector's postprocess and, for a model with a
+    mask head unless ``masks`` is false, ``mask_probs``
+    (``dets["masks"]``). Returns (dets, outputs); the outputs keep the
+    batch's ``im_info``."""
+    from mxdetection_tpu_torch.tools.common import infer_batch
 
-    from mxdetection_tpu_torch.data.transforms import batch_transform
-    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs
-    from mxdetection_tpu_torch.models.registry import detector_fns
-
-    d = cfg.data
-    pad_hw = (d.pad_h, d.pad_w)
-    b = raw.shape[0]
-    flip = torch.zeros((b,), dtype=torch.bool, device=raw.device)
-    gtb = torch.zeros((b, d.max_gt, 4), device=raw.device)
-    with torch.no_grad():
-        tb = batch_transform(raw, hw, flip, gtb, out_hw=pad_hw, scale_size=d.scale,
-                             max_size=d.max_size, mean=d.mean, std=d.std, dtype=dtype)
-        out = model.forward_test(tb["images"], tb["im_info"])
-        out["im_info"] = tb["im_info"]
-        dets = detector_fns(cfg).postprocess(out, cfg, pad_hw, tb["im_info"])
-        if masks and getattr(model, "mask_head", None) is not None:
-            dets["masks"] = mask_probs(model, out, dets, tb["im_info"])
-        return dets, out
+    return infer_batch(model, cfg, raw, hw, dtype, masks)
 
 
 def check_dets(dets, hw, what: str) -> int:
@@ -1325,6 +1293,7 @@ def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
     import torch
 
     from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.tools.common import seeded_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1814,38 +1783,10 @@ def phase_deform_conv(device) -> dict:
 # phase 8: the Cascade R-CNN R101-DCN inference path
 
 
-def dcn_layers(model) -> list:
-    from mxdetection_tpu_torch.models.backbones.resnet import DeformConv
-
-    return [m for m in model.modules() if isinstance(m, DeformConv)]
-
-
-def seed_offset_convs(model, cfg, raw, hw, gen) -> None:
-    """Overwrite every offset conv's weight (zero in the JAX init, which
-    would make each DCN a plain conv) with seeded normal noise scaled by
-    1 / (sqrt(9 Cin) * RMS of the layer's input), so that its offsets have
-    a std of about 1 cell. The RMS is measured layer by layer in one f32
-    forward pass of ``raw`` (each layer's input depends on the offsets
-    before it)."""
-    import torch
-
-    def pre(m, args):
-        rms = args[0].float().pow(2).mean().sqrt()
-        w = m.offset_conv.weight
-        noise = torch.randn(w.shape, generator=gen).to(w.device)
-        with torch.no_grad():
-            w.copy_(noise / (rms * (9 * w.shape[1]) ** 0.5))
-
-    hooks = [m.register_forward_pre_hook(pre) for m in dcn_layers(model)]
-    try:
-        detect(model, cfg, raw, hw, torch.float32)
-    finally:
-        for h in hooks:
-            h.remove()
-
-
 def offset_stats(model, run) -> dict:
     """Sample statistics of every DCN layer's offsets over one ``run()``."""
+    from mxdetection_tpu_torch.tools.common import dcn_layers
+
     total = {}
 
     def post(dcn, args, out):
@@ -1874,6 +1815,7 @@ def phase_cascade_path(device, card: str, counters, profile_dir: str | None) -> 
 
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.tools.common import dcn_layers, seed_offset_convs
 
     torch.backends.cudnn.allow_tf32 = False  # the card-vs-CPU check is in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2023,6 +1965,7 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
     import torch
 
     from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.tools.common import seeded_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2547,6 +2490,7 @@ def phase_cascade_train_path(device, card: str, counters, profile_dir: str | Non
 
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.tools.common import dcn_layers, seed_offset_convs
     from mxdetection_tpu_torch.train.trainer import Trainer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2816,6 +2760,7 @@ def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
     import torch
 
     from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.tools.common import seeded_model
     from mxdetection_tpu_torch.train.trainer import Trainer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2910,6 +2855,7 @@ def eval_parity(device, tmp: str) -> None:
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.data.coco import CocoDataset, make_synthetic_coco
     from mxdetection_tpu_torch.eval.evaluator import Evaluator
+    from mxdetection_tpu_torch.tools.common import seeded_model
 
     ann, img_dir = make_synthetic_coco(os.path.join(tmp, "small"), num_images=2,
                                        size_range=(200, 300), num_classes=80, seed=3,
@@ -3166,6 +3112,85 @@ def phase_fit_path(device, card: str, counters: list) -> dict:
     return {"fit_epochs": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the throughput entry points
+
+
+ZOO_CONFIGS = ("faster_rcnn_r50_fpn_1x", "faster_rcnn_r50_voc", MASK, CASCADE,
+               "retinanet_r50_fpn_1x", "rfcn_r50_1x", SYNC)
+TRAINED_CONFIGS = tuple(n for n in ZOO_CONFIGS if n != "faster_rcnn_r50_voc")
+HEADLINE_METRIC = "faster_rcnn_r50_fpn_coco_inference_images_per_sec_per_gpu"
+
+
+def bench_kernels(name: str, train: bool) -> set:
+    """The kernels an inference batch (or a training step) of ``name``
+    launches in phases 6-15."""
+    infer = {"nms"} if name in ("retinanet_r50_fpn_1x", "rfcn_r50_1x") else {"roi_align", "nms"}
+    if name == CASCADE:
+        infer |= {"deform_conv", "deform_conv_s2"}
+    if not train:
+        return infer
+    step = {"iou", "iou_pass_a", "iou_pass_b"}
+    if name == "retinanet_r50_fpn_1x":
+        return step
+    step |= infer
+    if "roi_align" in infer:
+        step |= {"roi_align_bwd", "roi_align_bwd_bf16"}
+    if name == CASCADE:
+        step |= {"deform_wgrad_doffsets", "deform_wgrad_doffsets_s2", "deform_col2im",
+                 "deform_col2im_s2"}
+    return step
+
+
+def phase_bench_tools(card: str) -> dict:
+    """Phase 18 (see the module's docstring). Returns {command: its JSON line}."""
+    import gc
+    import math
+    import os
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the tools' processes
+    runs = ([("bench_infer", [], "faster_rcnn_r50_fpn_1x")]
+            + [("bench_infer", ["--config", n, "--batch", "8"], n) for n in ZOO_CONFIGS]
+            + [("bench_train", [n, "2"], n) for n in TRAINED_CONFIGS])
+    t_phase = time.perf_counter()
+    lines = {}
+    for tool, args, name in runs:
+        what = " ".join([tool, *args])
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"mxdetection_tpu_torch.tools.{tool}", *args],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in res.stderr.strip().splitlines() + res.stdout.strip().splitlines():
+            log(f"  {what}: {line}")
+        log(f"{what}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+        if res.returncode != 0:
+            fail(f"{what} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        try:
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            launches = json.loads([x for x in res.stderr.splitlines()
+                                   if x.startswith("launches ")][-1][len("launches "):])
+        except (IndexError, ValueError):
+            fail(f"{what}: its last line is not JSON, or it logged no launches")
+        value = line.get("value", line.get("images_per_sec"))
+        if not (isinstance(value, (int, float)) and math.isfinite(value) and value > 0):
+            fail(f"{what}: value {value!r} is not finite and positive")
+        if not args and line.get("metric") != HEADLINE_METRIC:
+            fail(f"{what}: metric {line.get('metric')!r}, expected {HEADLINE_METRIC!r}")
+        missing = bench_kernels(name, tool == "bench_train") - set(launches)
+        if missing:
+            fail(f"{what} never launched {sorted(missing)}")
+        lines[what] = line
+    log(card)
+    for what, line in lines.items():
+        log(f"{what}: {json.dumps(line)}")
+    log(f"phase 18 (throughput entry points, {len(runs)} processes) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3278,6 +3303,7 @@ def main() -> int:
         iou_cuda.pass_b_count]))
     log(f"phase 16 (evaluation) took {t1 - t0:.1f} s, phase 17 (training loop) "
         f"{time.perf_counter() - t1:.1f} s")
+    phase_bench_tools(card)
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res

@@ -1,17 +1,18 @@
 """Inference/eval loop: batched forward + postprocess on the model's device
 -> COCO metrics or VOC mAP — port of ``mxdetection_tpu.eval.evaluator``.
 
-Each batch runs eagerly on the device: ``batch_transform`` ->
-``forward_test`` -> the detector's postprocess (``detector_fns``) and, for
-a mask head, ``mask_probs``; only the fixed-size top detections of each image
-come to the host. Flip and multi-scale TTA run every variant, merge their
-boxes with the configured test NMS (``merge_tta``) and re-run the mask head
-on the merged boxes against every variant's kept pyramid (``tta_masks``).
-Masks are pasted into the image by ``paste_masks`` (Pillow's bilinear resize
-in its fixed point, on the device) and RLE-encoded on the host
-(``rle_native`` when it builds). ``run`` times the steady state without the
-first batch, which also pays the card's first kernel loads, and reports the
-forward's seconds and the host's paste + RLE seconds apart.
+Each batch runs eagerly on the device (``tools/common.py::infer_batch``):
+``batch_transform`` -> ``forward_test`` -> the detector's postprocess
+(``detector_fns``) and, for a mask head, ``mask_probs``; only the
+fixed-size top detections of each image come to the host. Flip and
+multi-scale TTA run every variant, merge their boxes with the configured
+test NMS (``merge_tta``) and re-run the mask head on the merged boxes
+against every variant's kept pyramid (``tta_masks``). Masks are pasted
+into the image by ``paste_masks`` (Pillow's bilinear resize in its fixed
+point, on the device) and RLE-encoded on the host (``rle_native`` when it
+builds). ``run`` times the steady state without the first batch, which
+also pays the card's first kernel loads, and reports the forward's
+seconds and the host's paste + RLE seconds apart.
 """
 
 from __future__ import annotations
@@ -25,12 +26,10 @@ from ..config import Config
 from ..data.coco import CocoDataset, rasterize_full_mask
 from ..data.images import bilinear_pass
 from ..data.loader import DetectionLoader
-from ..data.transforms import batch_transform
-from ..models.detectors.rcnn import mask_probs
-from ..models.registry import detector_fns
 from ..ops import boxes as box_lib
 from ..ops import nms as nms_lib
 from ..parallel.dist import all_gather_objects
+from ..tools.common import infer_batch
 from . import rle_native
 from .coco_eval import CocoEvaluator, format_table
 from .rle import encode_rle
@@ -119,7 +118,6 @@ class Evaluator:
         self.loader = DetectionLoader(
             dataset, batch_size=batch_size, raw_hw=raw_hw, max_gt=cfg.data.max_gt,
             shuffle=False, flip=False, drop_last=False, orient_buckets=True)
-        self.postprocess = detector_fns(cfg).postprocess
         d = cfg.data
         # TTA variants: (scale_size, flip)
         self.tta_variants = [(d.scale, False)]
@@ -135,20 +133,16 @@ class Evaluator:
     @torch.no_grad()
     def forward(self, batch: dict, scale_size: int, flip: bool = False, out_hw=None,
                 want_masks: bool = False, keep_pyramid: bool = False) -> dict:
-        """One variant of a device batch -> detections (B, max_per_image) on the device."""
-        d = self.cfg.data
+        """One variant of a device batch -> detections (B, max_per_image) on the
+        device: ``tools/common.py::infer_batch`` at ``scale_size`` on the
+        ``out_hw`` canvas, every image flipped where ``flip``."""
         flips = torch.ones_like(batch["flip"]) if flip else batch["flip"]
-        tb = batch_transform(
-            batch["raw"], batch["hw"], flips, batch["gt_boxes"], out_hw=out_hw,
-            scale_size=scale_size, max_size=d.max_size, mean=d.mean, std=d.std,
-            dtype=self.model.compute_dtype)
-        out = self.model.forward_test(tb["images"], tb["im_info"])
-        dets = self.postprocess(out, self.cfg, out_hw, tb["im_info"])
-        if want_masks:
-            dets["masks"] = mask_probs(self.model, out, dets, tb["im_info"])
+        dets, out = infer_batch(self.model, self.cfg, batch["raw"], batch["hw"],
+                                self.model.compute_dtype, masks=want_masks, flip=flips,
+                                scale_size=scale_size, out_hw=out_hw)
         if keep_pyramid:
             dets["pyramid"] = out["pyramid"]
-            dets["scale"] = tb["im_info"][:, 2]
+            dets["scale"] = out["im_info"][:, 2]
         return dets
 
     @torch.no_grad()

@@ -16,12 +16,10 @@ import torch
 
 from ..config import load_config
 from ..data.images import read_image, write_image
-from ..data.transforms import batch_transform
 from ..eval.evaluator import paste_masks
-from ..models.detectors.rcnn import mask_probs
-from ..models.registry import build_detector, detector_fns, require_device
+from ..models.registry import build_detector, require_device
 from ..train.checkpoint import CheckpointManager
-from .common import parse_overrides
+from .common import infer_batch, parse_overrides
 
 PALETTE = [(230, 25, 75), (60, 180, 75), (255, 225, 25), (0, 130, 200),
            (245, 130, 48), (145, 30, 180), (70, 240, 240), (240, 50, 230),
@@ -61,7 +59,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config, parse_overrides(args.override))
-    d = cfg.data
     device = require_device(args.device)
     model = build_detector(cfg, device=device, seed=cfg.train.seed)
     if args.checkpoint:
@@ -71,22 +68,14 @@ def main(argv=None) -> int:
     h, w = img.shape[:2]
     raw = np.zeros((1, -(-h // 64) * 64, -(-w // 64) * 64, 3), np.uint8)
     raw[0, :h, :w] = img
-    pad_hw = (d.pad_h, d.pad_w)
-    tb = batch_transform(
-        torch.from_numpy(raw).to(device), torch.tensor([[h, w]], dtype=torch.float32,
-                                                       device=device),
-        torch.zeros(1, dtype=torch.bool, device=device), torch.zeros(1, 1, 4, device=device),
-        out_hw=pad_hw, scale_size=d.scale, max_size=d.max_size, mean=d.mean, std=d.std,
-        dtype=model.compute_dtype)
-    out = model.forward_test(tb["images"], tb["im_info"])
-    dets = detector_fns(cfg).postprocess(out, cfg, pad_hw, tb["im_info"])
+    dets, _ = infer_batch(model, cfg, torch.from_numpy(raw).to(device),
+                          torch.tensor([[h, w]], dtype=torch.float32, device=device),
+                          model.compute_dtype)
     v = dets["valid"][0]
     boxes = dets["boxes"][0][v].cpu().numpy()
     scores = dets["scores"][0][v].cpu().numpy()
     labels = dets["labels"][0][v].cpu().numpy()
-    masks = None
-    if getattr(model, "mask_head", None) is not None:
-        masks = paste_masks(mask_probs(model, out, dets, tb["im_info"])[0][v], boxes, h, w)
+    masks = paste_masks(dets["masks"][0][v], boxes, h, w) if "masks" in dets else None
 
     write_image(args.out, draw_detections(img, boxes, scores, labels, masks=masks,
                                           score_thr=args.score_thr))

@@ -90,7 +90,7 @@ def init_jax(cfg, masks=False):
 def retina(tmp_path_factory):
     """RetinaNet at 128x128 on 4 JAX-made images; its class conv scaled by 30
     so that seeded scores spread over 0.06-0.14, above the 0.05 threshold
-    (at the prior they sit at 0.01), as ``chip_smoke.CLASS_CONV_SCALE``."""
+    (at the prior they sit at 0.01), as ``tools/common.py::CLASS_CONV_SCALE``."""
     root = tmp_path_factory.mktemp("retina")
     ann, img_dir = make_synthetic_coco(str(root), num_images=4, num_classes=3, seed=5)
     over = {**SMALL, "retina_head.num_classes": 3, "test.pre_nms_per_class": 200,
