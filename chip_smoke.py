@@ -82,7 +82,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    passes) must rise; a
    small f32 step (256x320, batch 2, the same weights and random draws on
    both) must give the same losses, grad norms and discrete metrics on the
-   card as on the CPU;
+   card as on the CPU, for ``faster_rcnn_r50_voc`` (20 classes) too;
 10. holds the deformable conv's backward kernels (K6/K6b: the fused weight
    gradient, dW = patches^T g on the tensor cores from patch tiles built in
    shared memory, with the offset gradient reduced over channels; K7/K7b:
@@ -110,7 +110,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    noise of step 8, 2 warm-up and 10 timed steps, every kernel's launch count
    rising (K5, K5b, K6, K6b, K7, K7b 27 or 3 times a step), after a
    card-vs-CPU f32 step at 256x320 with that noise in the first DCN of each
-   stage (losses 1e-4, grad norms 1e-3, discrete metrics equal);
+   stage (losses 1e-4, grad norms 1e-3, discrete metrics equal), the same
+   card step with ``backbone.remat`` (within 1e-5 relative, K5 and K5b
+   launched twice as often: the recompute runs every DCN's forward again),
+   and at full width the peak memory with remat beside the step's without;
 12. drives the SyncBN data-parallel training path: the
    ``multihost_dp_faster_rcnn_v5p16`` config (SyncBN at every backbone norm,
    every stage training) through ``Trainer.run_step`` in a NCCL process group
@@ -144,9 +147,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    spread: a small f32 input and training step on the card against
    the CPU as in 6 and 9; at 8x832x1344 in bf16 a warm-up and 20 timed
    batches of ``forward_test`` + ``retinanet_postprocess`` (K2 once a
-   batch) and 2 warm-up and 10 timed steps of ``Trainer.run_step`` (the
-   focal loss over 209,538 anchors an image; K4's pass A and B once each a
-   step), the launches a batch and a step checked;
+   batch), the same with ``test.exact_topk=True`` (card against CPU on the
+   small input, its median beside the default's) and 2 warm-up and 10
+   timed steps of ``Trainer.run_step`` (the focal loss over 209,538
+   anchors an image; K4's pass A and B once each a step), the launches a
+   batch and a step checked;
 15. drives the R-FCN path (``rfcn_r50_1x``: R50 with a dilated C5, a
    single-level RPN on C4, deformable PSRoIPool over 7 x 7 bins, OHEM),
    its class conv scaled likewise, as in 14 (K2 twice a batch; K2 once,
@@ -181,11 +186,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``python -m mxdetection_tpu_torch.tools.bench_infer`` with no arguments
    (the headline: Faster R-CNN at batch 32, 832x1344, bf16), ``bench_infer
    --config NAME --batch 8`` for each of the seven zoo configs and
-   ``bench_train NAME 2`` for the six trained ones (Faster VOC left out);
+   ``bench_train NAME 2`` for each of the seven too;
    each must exit 0 with a JSON last line whose value is finite and
    positive, and launch every kernel its config's batch or step launches
    in the phases above (its ``launches`` log line); every line is logged;
-19. prints the card's name and power limit, the kernel table as one JSON
+19. runs a two-rank world on the one card: the compute mode must let two
+   processes in (logged); two processes of this script (``--dp-worker RANK
+   PORT DIR``) on ``cuda:0`` join one gloo group (NCCL refuses two ranks on
+   one card; gloo carries CUDA tensors through the host) and each runs, in
+   order:
+   one small f32 step of ``multihost_dp_faster_rcnn_v5p16`` at 256x320, one
+   image a rank, on the CPU and on the card (losses 1e-4 and grad norms
+   1e-3 relative; the averaged loss, SyncBN's running statistics and the
+   parameters after the step bit-identical on both ranks);
+   ``tools.train.main`` at 832x1344 bf16 with one class, 2 images a rank,
+   over 16 synthetic images for 2 epochs (exit 0; finite losses, equal on
+   both ranks at every step; one log, one metrics line a step and one
+   checkpoint, rank 0's; each rank's launches a step those of the SyncBN
+   step of 12); ``tools.eval.main`` of that checkpoint over 8 synthetic
+   images, every score kept (the same table on both ranks, within 1e-3 of
+   a one-process ``tools.eval`` of it, whose AP50 must be above 0 so that
+   the tables compare detections); one flat gradient all-reduce and SyncBN's
+   statistics all-reduces of a step, timed. Logged: the ms a step at world
+   size 2, the all-reduces' ms, the peak memory a rank and the phase's
+   seconds. Two processes sharing a card give no scaling figure;
+20. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -225,6 +250,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1285,11 +1312,12 @@ def check_parity(cpu, gpu, hw, what: str) -> None:
 
 
 def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
-                 what: str = "small f32 input") -> None:
+                 what: str = "small f32 input", overrides=None) -> None:
     """A 256x320 f32 input through the port on the card (kernels) and on the
     CPU (plain versions, which the CPU tests hold against the JAX package),
     with the mask probabilities where the config has a mask head; the seeded
-    weights as ``seeded_model`` makes them."""
+    weights as ``seeded_model`` makes them; the config overridden by
+    ``SMALL_OVERRIDES`` and then ``overrides``."""
     import torch
 
     from mxdetection_tpu_torch.config import load_config
@@ -1297,7 +1325,7 @@ def small_parity(device, name: str = "faster_rcnn_r50_fpn_1x",
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = load_config(name).override(**SMALL_OVERRIDES)
+    cfg = load_config(name).override(**{**SMALL_OVERRIDES, **(overrides or {})})
     raw, hw = small_input()
     dets = {}
     for dev in ("cpu", device):
@@ -1939,19 +1967,56 @@ SMALL_TRAIN_OVERRIDES = {
 def small_train_step(cfg, state: dict, batch: dict, draws, device, what: str) -> tuple:
     """One training step of ``cfg`` on ``device`` from the weights
     ``state``: (its metrics and per-module grad norms, the norms' running
-    statistics after it, on the CPU)."""
+    statistics after it, on the CPU, the kernels it launched, the model)."""
     from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.tools.common import read_launches, reset_launches
     from mxdetection_tpu_torch.train.trainer import Trainer
 
     m = build_detector(cfg, device="cpu", train=True)
     m.load_state_dict(state)
     t0 = time.perf_counter()
+    reset_launches()
     metrics = Trainer(cfg, m, device=device).run_step(batch, draws=draws)
+    launches = read_launches()
     res = {**{k: float(v) for k, v in metrics.items()}, **grad_norms(m)}
     log(f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
     stats = {k: v.detach().cpu() for k, v in m.state_dict().items()
              if k.endswith((".mean", ".var"))}
-    return res, stats
+    return res, stats, launches, m
+
+
+def compare_steps(cpu: dict, gpu: dict, what: str) -> None:
+    """A card step's metrics and grad norms against the CPU's: losses
+    within 1e-4 and grad norms within 1e-3 relative, discrete metrics equal."""
+    discrete = [k for k in cpu if k in ("num_pos_rois", "num_pos") or k.startswith("rcnn_acc")]
+    worst = {}
+    for k, r in cpu.items():
+        if k in discrete:
+            if gpu[k] != r:
+                fail(f"{what}: {k} {gpu[k]} on the card, {r} on the CPU")
+            continue
+        worst[k] = abs(gpu[k] - r) / max(abs(r), 1e-12)
+    log(f"{what} card vs CPU: " + ", ".join(
+        f"{k} {cpu[k]:.6g} rel {worst[k]:.2e}" for k in sorted(worst))
+        + "; " + ", ".join(f"{k} {cpu[k]:.4f}" for k in discrete) + " equal"
+        " (bounds: losses 1e-4, grad norms 1e-3 relative)")
+    for k, rel in worst.items():
+        if rel > (1e-3 if "norm" in k else 1e-4):
+            fail(f"{what}: {k} differs by {rel:.2e} relative between card and CPU")
+
+
+def small_train_batch(cfg) -> dict:
+    """Two 240x300 canvases with up to 8 gt boxes each (``train_batch``,
+    seed 7), their labels folded into ``cfg``'s foreground classes."""
+    import torch
+
+    from mxdetection_tpu_torch.tools.common import num_classes
+
+    batch = train_batch(2, (240, 300), torch.Generator().manual_seed(7), "cpu")
+    batch = {k: v[:, :8] if k.startswith("gt_") or k == "box_masks" else v
+             for k, v in batch.items()}
+    batch["gt_labels"] = batch["gt_labels"] % num_classes(cfg)
+    return batch
 
 
 def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
@@ -1970,31 +2035,14 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(name, {**SMALL_TRAIN_OVERRIDES, **(overrides or {})})
-    batch = train_batch(2, (240, 300), torch.Generator().manual_seed(7), "cpu")
-    batch = {k: v[:, :8] if k.startswith("gt_") or k == "box_masks" else v
-             for k, v in batch.items()}
+    batch = small_train_batch(cfg)
     replay = ReplayDraws(8)
     if state is None:
         model = seeded_model(cfg, "cpu", train=True)
         state = {k: v.clone() for k, v in model.state_dict().items()}
     res = {dev: small_train_step(cfg, state, batch, replay.on(dev), dev, what)
            for dev in ("cpu", device)}
-    cpu, gpu = res["cpu"][0], res[device][0]
-    discrete = [k for k in cpu if k in ("num_pos_rois", "num_pos") or k.startswith("rcnn_acc")]
-    worst = {}
-    for k, r in cpu.items():
-        if k in discrete:
-            if gpu[k] != r:
-                fail(f"{what}: {k} {gpu[k]} on the card, {r} on the CPU")
-            continue
-        worst[k] = abs(gpu[k] - r) / max(abs(r), 1e-12)
-    log(f"{what} card vs CPU: " + ", ".join(
-        f"{k} {cpu[k]:.6g} rel {worst[k]:.2e}" for k in sorted(worst))
-        + "; " + ", ".join(f"{k} {cpu[k]:.4f}" for k in discrete) + " equal"
-        " (bounds: losses 1e-4, grad norms 1e-3 relative)")
-    for k, rel in worst.items():
-        if rel > (1e-3 if "norm" in k else 1e-4):
-            fail(f"{what}: {k} differs by {rel:.2e} relative between card and CPU")
+    compare_steps(res["cpu"][0], res[device][0], what)
     return cfg, state, batch, replay, res[device]
 
 
@@ -2129,6 +2177,7 @@ def phase_train_path(device, card: str, counters, profile_dir: str | None,
     from mxdetection_tpu_torch.train.trainer import Trainer
 
     small_train_parity(device)
+    small_train_parity(device, "faster_rcnn_r50_voc", what="VOC small f32 train step")
     cfg = load_config("faster_rcnn_r50_fpn_1x", {"data.batch_size_per_device": MAIN_BATCH})
     t0 = time.perf_counter()
     # steps per epoch of COCO train2017 (117,266 images with annotations)
@@ -2509,8 +2558,8 @@ def phase_cascade_train_path(device, card: str, counters, profile_dir: str | Non
     state = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
     del model, gpu_model
 
-    small_train_parity(device, CASCADE, first_dcn_of_each_stage(state),
-                       "cascade small f32 train step")
+    check_remat(device, *small_train_parity(device, CASCADE, first_dcn_of_each_stage(state),
+                                            "cascade small f32 train step"))
 
     model = build_detector(cfg, device="cpu", train=True)
     model.load_state_dict(state)
@@ -2518,13 +2567,20 @@ def phase_cascade_train_path(device, card: str, counters, profile_dir: str | Non
     log(f"cascade train path: f32 master weights, {cfg.backbone.dtype} compute, "
         f"{len(dcn_layers(trainer.model))} DCN layers, offset convs seeded as above")
     batch = train_batch(MAIN_BATCH, (480, 640), torch.Generator().manual_seed(9), device)
-    launches, _, _ = drive_train(trainer, batch, counters, card, "cascade train path",
-                                 profile_dir, "cascade_train_trace.json.gz")
+    launches, _, peak = drive_train(trainer, batch, counters, card, "cascade train path",
+                                    profile_dir, "cascade_train_trace.json.gz")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     want = {"deform_conv": 27, "deform_conv_s2": 3, "deform_wgrad_doffsets": 27,
             "deform_wgrad_doffsets_s2": 3, "deform_col2im": 27, "deform_col2im_s2": 3}
     if any(per_step.get(k) != v for k, v in want.items()):
         fail(f"cascade train path: expected {want} launches a step, got {per_step}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    remat = build_detector(cfg.override(**{"backbone.remat": True}), device="cpu", train=True)
+    remat.load_state_dict(state)
+    remat_peak(Trainer(cfg.override(**{"backbone.remat": True}), remat, device=device,
+                       steps_per_epoch=117266 // MAIN_BATCH), batch, peak, "cascade train path",
+               card)
     return launches
 
 
@@ -2544,20 +2600,47 @@ def check_remat(device, cfg, state, batch, replay, plain: tuple) -> None:
     """The small card step of ``small_train_parity`` again with
     ``backbone.remat``: the same losses and grad norms within 1e-5
     relative, and the same running statistics (within 1e-6 of their
-    largest value): the recompute must not move them a second time."""
-    res, stats = small_train_step(cfg.override(**{"backbone.remat": True}), state, batch,
-                                  replay.on(device), device, "small f32 SyncBN step, remat")
-    ref, ref_stats = plain
+    largest value): the recompute must not move them a second time. The
+    recompute runs every deformable conv's forward again, so the step
+    launches K5 and K5b twice as often as without remat."""
+    what = f"small f32 {cfg.name} step with remat"
+    res, stats, launches, _ = small_train_step(cfg.override(**{"backbone.remat": True}), state,
+                                               batch, replay.on(device), device, what)
+    ref, ref_stats, ref_launches, _ = plain
     if set(res) != set(ref) or set(stats) != set(ref_stats):
-        fail("small SyncBN step with remat: other metrics or statistics than without")
+        fail(f"{what}: other metrics or statistics than without")
     worst = max(abs(res[k] - r) / max(abs(r), 1e-12) for k, r in ref.items())
     stat_gap = max(float((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
                    for k, v in ref_stats.items())
-    log(f"small SyncBN step with remat against without, on the card: metrics and grad norms "
-        f"within {worst:.2e} relative, running statistics within {stat_gap:.2e} of their "
-        f"largest value (bounds 1e-5, 1e-6)")
+    log(f"{what} against without, on the card: metrics and grad norms within {worst:.2e} "
+        f"relative, running statistics within {stat_gap:.2e} of their largest value (bounds "
+        f"1e-5, 1e-6); launches {launches} against {ref_launches} without")
     if worst > 1e-5 or stat_gap > 1e-6:
-        fail("small SyncBN step: remat changed the step")
+        fail(f"{what}: remat changed the step")
+    want = {k: 2 * n if k in ("deform_conv", "deform_conv_s2") else n
+            for k, n in ref_launches.items()}
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want} (K5 and K5b twice)")
+
+
+def remat_peak(trainer, batch, peak: float, what: str, card: str) -> None:
+    """Three steps of ``trainer`` (built with ``backbone.remat``): its peak
+    memory beside ``peak``, the same step's without remat."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = trainer.run_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(m["loss"]):
+        fail(f"{what} with remat: loss {float(m['loss'])}")
+    log(f"{what} with backbone.remat: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against {peak:.2f} GiB "
+        f"without; steps 1-3 ms {', '.join(f'{t:.2f}' for t in times)} ({card})")
 
 
 def check_checkpoint(cfg, trainer, batch, device, steps_per_epoch: int) -> None:
@@ -2639,22 +2722,9 @@ def phase_sync_bn_train_path(device, card: str, counters, profile_dir: str | Non
             f"ms, peak {peak:.2f} GiB against {faster[1]:.2f} GiB, in this run ({card})")
         del trainer
         torch.cuda.empty_cache()
-        remat = Trainer(cfg.override(**{"backbone.remat": True}), device=device, seed=0,
-                        steps_per_epoch=steps_per_epoch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            m = remat.run_step(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        if not torch.isfinite(m["loss"]):
-            fail(f"sync_bn train path with remat: loss {float(m['loss'])}")
-        log(f"sync_bn train path with backbone.remat: peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against {peak:.2f} GiB "
-            f"without; steps 1-3 ms {', '.join(f'{t:.2f}' for t in times)} ({card})")
-        del remat
+        remat_peak(Trainer(cfg.override(**{"backbone.remat": True}), device=device, seed=0,
+                           steps_per_epoch=steps_per_epoch), batch, peak, "sync_bn train path",
+                   card)
     finally:
         dist.destroy_process_group()
     return launches
@@ -2745,7 +2815,8 @@ def phase_mask_path(device, card: str, counters: list, train_counters: list,
 
 def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
                    train_counters: list, per_batch: dict, per_step: dict,
-                   train_overrides: dict | None = None, nms_capture=None) -> dict:
+                   train_overrides: dict | None = None, nms_capture=None,
+                   exact_topk: bool = False) -> dict:
     """One more detector of the zoo, ``name``, with ``seeded_model``'s
     weights: the card against the CPU at 256x320 in f32 (detections, and
     one training step with ``train_overrides``), then at 8x832x1344 in bf16
@@ -2753,6 +2824,8 @@ def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
     postprocess on the Faster path's canvases (``counters``, inside
     ``nms_capture`` if given) and ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` steps of
     ``Trainer.run_step`` on the Faster step's batch (``train_counters``).
+    With ``exact_topk`` (RetinaNet) the inference path runs again with
+    ``test.exact_topk=True``: card against CPU and timed beside the default.
     Fails unless the launches a batch and a step are ``per_batch`` and
     ``per_step``. Returns {path: launches}."""
     import contextlib
@@ -2780,13 +2853,27 @@ def phase_zoo_path(device, card: str, name: str, label: str, counters: list,
                         dtype=torch.uint8).to(device)
     hw = torch.tensor([[480.0, 640.0]] * MAIN_BATCH, device=device)
     with nms_capture or contextlib.nullcontext():
-        launches = {f"{label}_inference": drive(model, cfg, raw, hw, dtype, counters, card,
-                                                f"{label} path")[0]}
+        launches = {}
+        launches[f"{label}_inference"], _, _, times = drive(model, cfg, raw, hw, dtype, counters,
+                                                            card, f"{label} path")
     got = {k: n / (TIMED_BATCHES + 1) for k, n in launches[f"{label}_inference"].items()}
     log(f"{label} path: launches per batch {got}")
     if got != per_batch:
         fail(f"{label} path: expected launches per batch {per_batch}, got {got}")
     del model
+    if exact_topk:
+        exact = {"test.exact_topk": True}
+        small_parity(device, name, f"{label} exact_topk small f32 input", exact)
+        default_ms = statistics.median(times)
+        launches[f"{label}_exact_topk_inference"], _, _, times = drive(
+            seeded_model(cfg.override(**exact), device), cfg.override(**exact), raw, hw, dtype,
+            counters, card, f"{label} exact_topk path")
+        got = {k: n / (TIMED_BATCHES + 1)
+               for k, n in launches[f"{label}_exact_topk_inference"].items()}
+        log(f"{label} exact_topk path: median {statistics.median(times):.2f} ms a batch against "
+            f"the default top-k's {default_ms:.2f} ms; launches per batch {got} ({card})")
+        if got != per_batch:
+            fail(f"{label} exact_topk path: expected launches per batch {per_batch}, got {got}")
 
     cfg = load_config(name, {"data.batch_size_per_device": MAIN_BATCH})
     t0 = time.perf_counter()
@@ -3118,7 +3205,6 @@ def phase_fit_path(device, card: str, counters: list) -> dict:
 
 ZOO_CONFIGS = ("faster_rcnn_r50_fpn_1x", "faster_rcnn_r50_voc", MASK, CASCADE,
                "retinanet_r50_fpn_1x", "rfcn_r50_1x", SYNC)
-TRAINED_CONFIGS = tuple(n for n in ZOO_CONFIGS if n != "faster_rcnn_r50_voc")
 HEADLINE_METRIC = "faster_rcnn_r50_fpn_coco_inference_images_per_sec_per_gpu"
 
 
@@ -3145,7 +3231,6 @@ def bench_kernels(name: str, train: bool) -> set:
 def phase_bench_tools(card: str) -> dict:
     """Phase 18 (see the module's docstring). Returns {command: its JSON line}."""
     import gc
-    import math
     import os
 
     import torch
@@ -3154,7 +3239,7 @@ def phase_bench_tools(card: str) -> dict:
     torch.cuda.empty_cache()  # the card's memory to the tools' processes
     runs = ([("bench_infer", [], "faster_rcnn_r50_fpn_1x")]
             + [("bench_infer", ["--config", n, "--batch", "8"], n) for n in ZOO_CONFIGS]
-            + [("bench_train", [n, "2"], n) for n in TRAINED_CONFIGS])
+            + [("bench_train", [n, "2"], n) for n in ZOO_CONFIGS])
     t_phase = time.perf_counter()
     lines = {}
     for tool, args, name in runs:
@@ -3191,6 +3276,284 @@ def phase_bench_tools(card: str) -> dict:
     return lines
 
 
+# --------------------------------------------------------------------------
+# phase 19: a two-rank world on the card
+
+
+DP_IMAGES, DP_EPOCHS, DP_BATCH, DP_EVAL_IMAGES = 16, 2, 2, 8
+# One class, so that the random net's detections score some AP, and every
+# score kept: the two-rank and the one-process tables then compare real
+# detections. The evaluation runs an image a batch, so that both see the
+# same batches.
+DP_MODEL_OVERRIDES = ["bbox_head.num_classes=1"]
+DP_EVAL_ARGS = ["--override", *DP_MODEL_OVERRIDES, "test.score_thr=0.0", "--synthetic",
+                str(DP_EVAL_IMAGES), "--batch-size", "1"]
+
+
+def digest(tensors) -> str:
+    """A hash of ``tensors``' bytes, to hold two ranks' values bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 19 (``--dp-worker RANK PORT DIR``): on ``cuda:0``,
+    in a gloo group of two on 127.0.0.1:``port``, (1) one small f32 step of
+    the SyncBN config on the CPU and on the card, one image a rank, the same
+    batches and draws; (2) ``tools.train.main`` at full width; (3)
+    ``tools.eval.main`` of its checkpoint; (4) the gradients' and SyncBN's
+    all-reduces timed. Its findings go to ``DIR/rank<r>.json``."""
+    import contextlib
+    import glob
+    import io
+    import logging
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.layers import SyncBatchNorm
+    from mxdetection_tpu_torch.parallel.dist import all_gather_objects
+    from mxdetection_tpu_torch.parallel.mesh import initialize_multihost
+    from mxdetection_tpu_torch.tools import eval as teval
+    from mxdetection_tpu_torch.tools import train as ttrain
+    from mxdetection_tpu_torch.tools.common import read_launches, reset_launches, seeded_model
+
+    device = "cuda:0"  # both ranks share the one card
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo")
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+
+    def same_on_both(value, what: str) -> None:
+        values = all_gather_objects(value)
+        if values[0] != values[1]:
+            fail(f"rank {rank}: {what} differ between the ranks: {values}")
+
+    try:
+        # (1) the small f32 step, card against CPU, one image a rank
+        what = f"rank {rank} small f32 world-2 SyncBN step"
+        cfg = load_config(SYNC, SMALL_TRAIN_OVERRIDES)
+        batch = {k: v[rank:rank + 1] for k, v in small_train_batch(cfg).items()}
+        state = {k: v.clone() for k, v in seeded_model(cfg, "cpu", train=True).state_dict().items()}
+        replay = ReplayDraws(8)
+        res = {dev: small_train_step(cfg, state, batch, replay.on(dev), dev, what)
+               for dev in ("cpu", device)}
+        compare_steps(res["cpu"][0], res[device][0], what)
+        metrics, stats, _, model = res[device]
+        same_on_both({k: metrics[k] for k in ("loss", "grad_norm")}, "the averaged loss and norm")
+        same_on_both(digest(stats.values()), "SyncBN's running statistics")
+        same_on_both(digest(model.parameters()), "the parameters after the step")
+        moved = sum(bool((m.mean != 0).any()) for m in model.modules()
+                    if isinstance(m, SyncBatchNorm))
+        log(f"{what}: loss and grad norm, running statistics of {moved} SyncBN layers and the "
+            f"parameters after the step bit-identical on both ranks")
+        out["small"] = {k: metrics[k] for k in ("loss", "grad_norm")}
+
+        # (2) the training CLI at full width: the group exists, so it joins none
+        logged = []
+
+        class Steps(logging.Handler):
+            def emit(self, record):
+                if str(record.msg).startswith("step "):
+                    logged.append(record.args)  # (step, epoch, loss, lr, images/s)
+
+        logging.getLogger("mxdetection_tpu").addHandler(Steps())
+        train_root = os.path.join(tmp, "train")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = ttrain.main(["--config", SYNC, "--synthetic", str(DP_IMAGES), "--epochs",
+                          str(DP_EPOCHS), "--batch-size", str(DP_BATCH), "--device", device,
+                          "--override", *DP_MODEL_OVERRIDES, f"train.checkpoint_dir={train_root!r}",
+                          "train.log_every=1", "train.checkpoint_every_steps=100000"])
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["steps"] = [int(a[0]) for a in logged]
+        out["losses"] = [float(a[2]) for a in logged]
+        out["step_ms"] = [2 * DP_BATCH * 1e3 / a[4] for a in logged]
+        if rc != 0 or not out["steps"] or not all(map(math.isfinite, out["losses"])):
+            fail(f"rank {rank}: tools.train exited {rc} with losses {out['losses']}")
+        same_on_both(out["losses"], "the logged losses")
+        dist.barrier()
+        work = os.path.join(train_root, SYNC)
+        with open(os.path.join(work, "metrics.jsonl")) as fh:
+            n_lines = len(fh.readlines())
+        files = {"logs": len(glob.glob(os.path.join(work, "*.log"))), "metrics_lines": n_lines,
+                 "ckpt": sorted(os.listdir(os.path.join(work, "ckpt")))}
+        if files != {"logs": 1, "metrics_lines": len(out["steps"]),
+                     "ckpt": [f"step_{out['steps'][-1]}.pt"]}:
+            fail(f"rank {rank}: tools.train wrote {files}: one log, one metrics line a step "
+                 "and one checkpoint expected")
+        out["ckpt"] = os.path.join(work, "ckpt")
+
+        # (3) the evaluation CLI of that checkpoint
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = teval.main(["--config", SYNC, "--checkpoint", out["ckpt"], "--device", device,
+                             *DP_EVAL_ARGS])
+        out["eval_s"] = time.perf_counter() - t0
+        out["table"] = results_line(err.getvalue())
+        if rc != 0:
+            fail(f"rank {rank}: tools.eval exited {rc}")
+        same_on_both({k: v for k, v in out["table"].items() if k != "images_per_sec"},
+                     "the evaluation tables")
+
+        # (4) the step's all-reduces through gloo: the flat gradient buffer
+        # (with the metrics) and SyncBN's statistics, forward and backward
+        n_metrics = sum(1 for k in metrics if k != "grad_norm" and not k.startswith("gnorm_"))
+        flat = torch.zeros(sum(p.numel() for p in model.parameters()) + n_metrics, device=device)
+        bn = [torch.zeros(2, m.gamma.numel(), device=device) for m in model.modules()
+              if isinstance(m, SyncBatchNorm)]
+
+        def timed(fn, reps: int) -> float:
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        out["n_grad"] = flat.numel()
+        out["grad_allreduce_ms"] = timed(lambda: dist.all_reduce(flat), 5)
+        out["n_bn"] = len(bn)
+        out["bn_allreduce_ms"] = timed(lambda: [dist.all_reduce(b) for b in bn for _ in (0, 1)],
+                                       5)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def results_line(err: str) -> dict:
+    """The table of ``tools.eval``'s ``results {json}`` line in ``err``."""
+    lines = [x for x in err.splitlines() if " results {" in x]
+    if len(lines) != 1:
+        fail(f"tools.eval logged {len(lines)} results lines:\n{err[-3000:]}")
+    return json.loads(lines[0].split(" results ", 1)[1])
+
+
+def run_ranks(cmds: list, timeout: float, what: str) -> None:
+    """Run ``cmds`` at once, each with its output to a file and then to the
+    log; a process that exits non-zero ends the others and fails the phase."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [open(os.path.join(tmp, f"{r}.log"), "w+") for r in range(len(cmds))]
+        procs = [subprocess.Popen(c, stdout=fh, stderr=subprocess.STDOUT, text=True,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+                 for c, fh in zip(cmds, files)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for p, fh in zip(procs, files):
+            fh.seek(0)
+            outs.append((p.returncode, fh.read()))
+            fh.close()
+    for r, (rc, text) in enumerate(outs):
+        for line in text.strip().splitlines():
+            log(f"  {what} rank {r}: {line}")
+        if rc != 0:
+            fail(f"{what} rank {r} exited {rc}")
+
+
+def phase_dp_world(card: str, sync_per_step: dict) -> dict:
+    """Phase 19 (see the module's docstring): two ranks on the one card.
+    ``sync_per_step`` is phase 12's launches a step, which a rank's step of
+    the world-2 run must equal. Returns {path: launches, summed over the
+    ranks}."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the ranks' processes
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    log(f"dp world: compute mode {mode} ({card})")
+    if mode.splitlines()[0] != "Default":
+        fail(f"compute mode {mode}: the card takes one process, two ranks need two")
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        run_ranks([[sys.executable, here, "--dp-worker", str(r), str(port), tmp]
+                   for r in (0, 1)], 600, "dp worker")
+        res = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        t0 = time.perf_counter()
+        one = subprocess.run([sys.executable, "-m", "mxdetection_tpu_torch.tools.eval", "--config",
+                              SYNC, "--checkpoint", res[0]["ckpt"], *DP_EVAL_ARGS],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(here))
+        for line in one.stdout.strip().splitlines():
+            log(f"  one-process tools.eval: {line}")
+        if one.returncode != 0:
+            fail(f"one-process tools.eval exited {one.returncode}:\n{one.stderr[-3000:]}")
+        table = results_line(one.stderr)
+        eval_one_s = time.perf_counter() - t0
+    r0 = res[0]
+    gap = max(abs(r0["table"][k] - v) for k, v in table.items() if k != "images_per_sec")
+    log(f"dp world: the two ranks' table against the one process's: within {gap:.2e} "
+        f"(bound 1e-3); AP {r0['table']['AP']:.4f} / {table['AP']:.4f}, AP50 "
+        f"{r0['table']['AP50']:.4f} / {table['AP50']:.4f}, "
+        f"{r0['table']['num_images']} images; eval {r0['eval_s']:.1f} s on two ranks, "
+        f"{eval_one_s:.1f} s alone (with start-up)")
+    if not table["AP50"] > 0:
+        fail(f"dp world: the one-process table has AP50 {table['AP50']}: no detection to compare")
+    if gap > 1e-3 or r0["table"]["num_images"] != table["num_images"]:
+        fail("dp world: the two-rank evaluation differs from the one-process one")
+    n_steps = len(r0["steps"])
+    for r, rr in enumerate(res):
+        per_step = {k: n / n_steps for k, n in rr["launches"].items()}
+        if per_step != sync_per_step:
+            fail(f"dp world rank {r}: launches a step {per_step}, the SyncBN step's "
+                 f"{sync_per_step}")
+    later = [ms for i, ms in enumerate(r0["step_ms"]) if i not in (0, n_steps // DP_EPOCHS)]
+    log(f"dp world ({card}): {res[0]['world']} ranks on one card over {r0['backend']}, "
+        f"{DP_BATCH} images a rank, {n_steps} steps of a global batch of {2 * DP_BATCH} at "
+        f"832x1344 bf16 through tools.train in {r0['train_s']:.1f} s; ms a step "
+        + ", ".join(f"{ms:.1f}" for ms in r0["step_ms"])
+        + f" (median after each epoch's first {statistics.median(later):.1f}); losses "
+        + ", ".join(f"{x:.4f}" for x in r0["losses"]) + " on both ranks; peak memory "
+        f"{r0['peak_gib']:.2f} / {res[1]['peak_gib']:.2f} GiB a rank; one flat all-reduce of "
+        f"{r0['n_grad']} f32 values {r0['grad_allreduce_ms']:.2f} ms, the {r0['n_bn']} SyncBN "
+        f"layers' 2 x {r0['n_bn']} statistics all-reduces {r0['bn_allreduce_ms']:.2f} ms; "
+        f"launches a step {sync_per_step}")
+    log("dp world: two processes sharing one card, their all-reduces staged through the "
+        "host by gloo, give no scaling figure and say nothing of NCCL across cards")
+    log(f"phase 19 (a two-rank world) took {time.perf_counter() - t_phase:.1f} s")
+    return {"dp_world2_train": {k: res[0]["launches"][k] + res[1]["launches"].get(k, 0)
+                                for k in res[0]["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3207,6 +3570,8 @@ def main() -> int:
     parser.add_argument("--baseline", metavar="DIR", default=None,
                         help="also run the RoIAlign forward kernel of the checkout DIR on "
                              "phase 2's inputs and log its largest difference and time")
+    parser.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"), default=None,
+                        help="run one rank of phase 19's two-rank world (phase 19 starts it)")
     args = parser.parse_args()
     try:
         import torch
@@ -3218,6 +3583,8 @@ def main() -> int:
         import mxdetection_tpu_torch  # noqa: F401
     except ImportError:
         fail("mxdetection_tpu_torch not importable: run from the root of the repository")
+    if args.dp_worker:
+        return dp_worker(int(args.dp_worker[0]), int(args.dp_worker[1]), args.dp_worker[2])
     device = "cuda"
 
     card = phase_env()
@@ -3282,7 +3649,7 @@ def main() -> int:
     k4_counters = [iou_cuda.launch_count, iou_cuda.pass_a_count, iou_cuda.pass_b_count]
     paths.update(phase_zoo_path(
         device, card, "retinanet_r50_fpn_1x", "retinanet", [nms_cuda.launch_count], k4_counters,
-        {"nms": 1.0}, {"iou": 2.0, "iou_pass_a": 1.0, "iou_pass_b": 1.0}))
+        {"nms": 1.0}, {"iou": 2.0, "iou_pass_a": 1.0, "iou_pass_b": 1.0}, exact_topk=True))
     rfcn_nms = CaptureNms(1)
     paths.update(phase_zoo_path(
         device, card, "rfcn_r50_1x", "rfcn", [nms_cuda.launch_count],
@@ -3304,6 +3671,8 @@ def main() -> int:
     log(f"phase 16 (evaluation) took {t1 - t0:.1f} s, phase 17 (training loop) "
         f"{time.perf_counter() - t1:.1f} s")
     phase_bench_tools(card)
+    paths.update(phase_dp_world(card, {k: n / TRAIN_STEPS
+                                       for k, n in paths["sync_bn_train"].items()}))
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res

@@ -2,7 +2,8 @@
 
 The JAX function pickles the object and gathers padded uint8 rows in two
 collectives; ``torch.distributed.all_gather_object`` does the same over the
-process group.
+process group. ``on_rank0`` runs host work that must happen once (writing
+a dataset) on rank 0 and hands its result to every rank.
 """
 
 from __future__ import annotations
@@ -23,3 +24,25 @@ def all_gather_objects(obj) -> list:
     out = [None] * world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+def on_rank0(fn):
+    """``fn()`` on rank 0 alone; every rank returns its (picklable) result
+    once rank 0 is done. Should ``fn`` raise on rank 0, the other ranks
+    raise too instead of waiting. Single-process: ``fn()``."""
+    if world_size() == 1:
+        return fn()
+    err = None
+    out = [None]
+    if dist.get_rank() == 0:
+        try:
+            out = [(True, fn())]
+        except Exception as e:  # handed to the other ranks, then raised here
+            err, out = e, [(False, repr(e))]
+    dist.broadcast_object_list(out, src=0)
+    if err is not None:
+        raise err
+    ok, value = out[0]
+    if not ok:
+        raise RuntimeError(f"rank 0 failed: {value}")
+    return value

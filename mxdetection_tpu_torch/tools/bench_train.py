@@ -20,12 +20,13 @@ tensors on the device, no host sync in the step) are read on the host at
 the end, inside the timed span. Precision is torch's default: the tool sets
 no flag.
 
-One process drives one card. A process group is used only where the
-caller started one (``parallel.mesh.initialize_multihost``) before
-``main``, as the ``Trainer`` does: then the global batch is
-``batch_per_device`` times the group's size, each rank steps on its own
-rows, and rank 0 prints the line. Without a group SyncBN's statistics are
-the one card's (``multihost_dp_faster_rcnn_v5p16`` trains at world size 1).
+One process drives one card. Under ``python -m torch.distributed.run
+--nproc_per_node N`` each rank joins the launcher's process group
+(``tools/common.py::process_group``; a group the caller started itself is
+used as it is): then the global batch is ``batch_per_device`` times the
+group's size, each rank steps on its own rows, and rank 0 prints the line.
+Without a group SyncBN's statistics are the one card's
+(``multihost_dp_faster_rcnn_v5p16`` trains at world size 1).
 
 The weights are ``tools/common.py::seeded_model``'s; for Cascade R-CNN the
 offset convs get seeded noise from the batch's own canvases (generator
@@ -40,14 +41,13 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..config import load_config
-from ..models.registry import require_device
-from ..parallel.mesh import world_size
+from ..parallel.mesh import rank, world_size
 from ..train.trainer import Trainer
 from .common import (bench_log, dcn_layers, device_name, log_run_facts, parse_overrides,
-                     read_launches, reset_launches, seed_offset_convs, seeded_model)
+                     process_group, read_launches, reset_launches, seed_offset_convs,
+                     seeded_model)
 
 WARMUP, ITERS = 1, 10
 
@@ -83,11 +83,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config, parse_overrides(args.overrides))
-    device = require_device(args.device)
-    bpd, n_rep = args.batch_per_device, world_size()
-    rank = dist.get_rank() if n_rep > 1 else 0
+    with process_group(args.device) as device:
+        run(cfg, args.batch_per_device, device)
+    return 0
+
+
+def run(cfg, bpd: int, device: torch.device) -> None:
+    """One warm-up and ``ITERS`` timed steps of ``cfg`` at ``bpd`` images a
+    device on this rank's rows of the batch; the log on stderr and, on
+    rank 0, the JSON line."""
+    n_rep, r = world_size(), rank()
     batch_size = bpd * n_rep
-    batch = {k: torch.from_numpy(v[rank * bpd:(rank + 1) * bpd]).to(device)
+    batch = {k: torch.from_numpy(v[r * bpd:(r + 1) * bpd]).to(device)
              for k, v in train_batch(batch_size, cfg.data.max_gt,
                                      cfg.mask_head is not None).items()}
     model = seeded_model(cfg, device, train=True)
@@ -115,7 +122,7 @@ def main(argv=None) -> int:
     if not torch.isfinite(losses).all():
         raise SystemExit(f"{cfg.name}: a loss is not finite")
     steps_per_sec = ITERS / dt
-    if rank == 0:
+    if r == 0:
         print(json.dumps({
             "metric": f"{cfg.name}_train_step_per_sec",
             "value": round(steps_per_sec, 3),
@@ -124,7 +131,6 @@ def main(argv=None) -> int:
             "global_batch": batch_size,
             "device": device_name(device),
         }), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

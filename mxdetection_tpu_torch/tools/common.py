@@ -1,8 +1,9 @@
 """What the port's command-line tools share: ``--override`` parsing, the
-dataset of a config (its COCO or VOC files, or a synthetic set), the seeded
-model and the inference batch of the throughput tools (``bench_infer``,
-``bench_train``), which ``chip_smoke.py`` and the ``Evaluator`` run too,
-and the tools' launch counts.
+process group a launcher describes and the device of a rank
+(``process_group``), the dataset of a config (its COCO or VOC files, or a
+synthetic set), the seeded model and the inference batch of the throughput
+tools (``bench_infer``, ``bench_train``), which ``chip_smoke.py`` and the
+``Evaluator`` run too, and the tools' launch counts.
 
 The seeded model deviates from the JAX tools' ``bundle.init(PRNGKey(0))``
 weights on purpose (the card's machine has no JAX to draw them):
@@ -20,18 +21,22 @@ in the throughput tools, so that K5-K7 run at offsets of about one cell.
 from __future__ import annotations
 
 import ast
+import contextlib
 import json
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.coco import CocoDataset, make_synthetic_coco
 from ..data.transforms import batch_transform
 from ..data.voc import VocDataset, make_synthetic_voc
 from ..models.detectors.rcnn import mask_probs
-from ..models.registry import build_detector, detector_fns
+from ..models.registry import build_detector, detector_fns, require_device
+from ..parallel.dist import on_rank0
+from ..parallel.mesh import initialize_from_env, local_device, world_size
 
 
 def parse_overrides(pairs) -> dict:
@@ -48,25 +53,45 @@ def parse_overrides(pairs) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def process_group(device: str):
+    """A tool's run in the process group that torch's launcher describes
+    (``parallel.mesh.initialize_from_env``; none without one, and a group
+    the caller already started is used as it is). Yields this rank's device
+    (``local_device``: ``cuda`` is ``cuda:LOCAL_RANK`` under a launcher),
+    which must exist. A group joined here is destroyed at the end."""
+    joined = initialize_from_env(device)
+    try:
+        yield require_device(local_device(device, world_size()))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
 def num_classes(cfg: Config) -> int:
     return (cfg.retina_head.num_classes if cfg.detector == "retinanet"
             else cfg.bbox_head.num_classes)
 
 
-def load_dataset(cfg: Config, split: str, synthetic: int, synthetic_root: str):
+def load_dataset(cfg: Config, split: str, synthetic: int, synthetic_root: str,
+                 shared: bool = True):
     """The config's dataset for ``split``, or with ``synthetic`` > 0 that
-    many generated images under ``synthetic_root``."""
+    many generated images under ``synthetic_root``. In a process group a
+    ``shared`` root is written by rank 0 alone while the other ranks wait
+    (``on_rank0``); otherwise each rank writes its own root (the generator
+    is seeded: the same images)."""
     with_masks = cfg.mask_head is not None
+    write = on_rank0 if shared else (lambda fn: fn())
     if cfg.data.dataset == "voc":
         root = cfg.data.root
         if synthetic:
-            root = make_synthetic_voc(synthetic_root, num_images=synthetic,
-                                      num_classes=min(num_classes(cfg), 20), split=split,
-                                      year=cfg.data.voc_year)
+            root = write(lambda: make_synthetic_voc(
+                synthetic_root, num_images=synthetic, num_classes=min(num_classes(cfg), 20),
+                split=split, year=cfg.data.voc_year))
         return VocDataset(root, split=split, year=cfg.data.voc_year)
     if synthetic:
-        ann, img_dir = make_synthetic_coco(synthetic_root, num_images=synthetic, split=split,
-                                           num_classes=num_classes(cfg))
+        ann, img_dir = write(lambda: make_synthetic_coco(
+            synthetic_root, num_images=synthetic, split=split, num_classes=num_classes(cfg)))
         return CocoDataset(ann, img_dir, with_masks=with_masks)
     return CocoDataset(
         os.path.join(cfg.data.root, "annotations", f"instances_{split}.json"),

@@ -358,22 +358,15 @@ LIVE_IOU_THRS = (0.5, 0.4, 0.3)
 LIVE_DELTA_SCALE = 0.01
 
 
-def test_cascade_train_step_matches_live_jax(cascade_train, default_torch_threads):
-    """``value_and_grad`` of the JAX train step, run live, with a noisy
-    offset conv in the first stage-4 DCN (offsets of std 4.5 cells, many
-    corners off the map), ``cascade.stage_iou_thrs`` lowered and the
-    regression outputs of heads 0 and 1 scaled by 0.01, so stages 1 and 2
-    have positives (2 and 1 per image).
-
-    Measured gaps on the CPU: losses within 2.7e-5 relative, per-module grad
-    norms 5.7e-4 (backbone), the noisy offset conv's gradient 1.7e-3 of its
-    largest entry. A 1e-6 relative change of the input moves JAX's own
-    backbone grad norm by 3.7e-4 and that gradient by 3.9e-3, so these are
-    the conditioning of a random-weight net with noisy offsets, not the
-    port. Bounds: 6e-5 on the losses, 1.2e-3 on the grad norms, 4e-3 on the
-    offset conv's gradient; discrete metrics exact."""
+def live_steps(cascade_train, **over):
+    """``value_and_grad`` of the JAX train step, run live, and the port's
+    step, from ``cascade_train``'s params with a noisy offset conv in the
+    first stage-4 DCN, ``cascade.stage_iou_thrs`` lowered, the regression
+    outputs of heads 0 and 1 scaled, and the config overrides ``over`` on
+    both sides -> (the JAX metrics and grad norms, the noisy offset conv's
+    JAX gradient, the port's model, its metrics and grad norms)."""
     jcfg, tcfg, tb, variables = cascade_train
-    over = {"cascade.stage_iou_thrs": LIVE_IOU_THRS}
+    over = {"cascade.stage_iou_thrs": LIVE_IOU_THRS, **over}
     jcfg, tcfg = jcfg.override(**over), tcfg.override(**over)
     variables = jax.tree_util.tree_map(np.copy, variables)
     noisy_offsets(variables["params"]["backbone"]["layer4_block0"], 56, CASCADE_OFFSET_NOISE)
@@ -392,7 +385,13 @@ def test_cascade_train_step_matches_live_jax(cascade_train, default_torch_thread
         variables["params"])
     ref = {"loss": float(loss), **{f"metric_{k}": float(v) for k, v in metrics.items()}}
     ref.update({f"gnorm_{m}": float(optax.global_norm(grads[m])) for m in MODULES})
+    ref_off = np.asarray(grads["backbone"]["layer4_block0"]["conv2"]["offset_conv"]["kernel"])
     model, got = port_step(tcfg, variables, tb, rng)
+    return ref, ref_off, model, got
+
+
+def assert_live_steps_close(ref, ref_off, model, got):
+    """``live_steps``' two steps within the bounds of the live test below."""
     for k, r in ref.items():
         if k in ("metric_num_pos_rois", "metric_rcnn_acc0", "metric_rcnn_acc1",
                  "metric_rcnn_acc2"):
@@ -400,9 +399,25 @@ def test_cascade_train_step_matches_live_jax(cascade_train, default_torch_thread
         else:
             assert abs(got[k] - r) <= (1.2e-3 if "gnorm" in k else 6e-5) * abs(r), (k, got[k], r)
     assert ref["metric_loss_rcnn_reg1"] > 0 and ref["metric_loss_rcnn_reg2"] > 0
-    ref_off = np.asarray(grads["backbone"]["layer4_block0"]["conv2"]["offset_conv"]["kernel"])
     got_off = N(model.backbone.layer4_block0.conv2.offset_conv.weight.grad.permute(2, 3, 1, 0))
     np.testing.assert_allclose(got_off, ref_off, rtol=0, atol=4e-3 * np.abs(ref_off).max())
+
+
+def test_cascade_train_step_matches_live_jax(cascade_train, default_torch_threads):
+    """``value_and_grad`` of the JAX train step, run live, with a noisy
+    offset conv in the first stage-4 DCN (offsets of std 4.5 cells, many
+    corners off the map), ``cascade.stage_iou_thrs`` lowered and the
+    regression outputs of heads 0 and 1 scaled by 0.01, so stages 1 and 2
+    have positives (2 and 1 per image).
+
+    Measured gaps on the CPU: losses within 2.7e-5 relative, per-module grad
+    norms 5.7e-4 (backbone), the noisy offset conv's gradient 1.7e-3 of its
+    largest entry. A 1e-6 relative change of the input moves JAX's own
+    backbone grad norm by 3.7e-4 and that gradient by 3.9e-3, so these are
+    the conditioning of a random-weight net with noisy offsets, not the
+    port. Bounds: 6e-5 on the losses, 1.2e-3 on the grad norms, 4e-3 on the
+    offset conv's gradient; discrete metrics exact."""
+    assert_live_steps_close(*live_steps(cascade_train))
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
