@@ -91,7 +91,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against their plain versions at the six DCN layer shapes (offsets of
    std 1.5 cells): f32 dW, doffsets and dx within 1e-4 of the largest
    value, K6 and K7 on the bf16 inputs of the main path as well, and the
-   whole bf16 backward of ``DeformConvFunction`` against the f32 plain one,
+   whole bf16 backward of ``mxdet::deform_conv2d`` against the f32 plain one,
    norm-relative under 3 % (dx, dW) and 6 % (doffsets); also with
    ``radius=3``, on a ragged M, at zero offsets against ``F.conv2d``'s
    gradients (f32) and cuDNN's wgrad (bf16 values), and K7 on f32 and bf16
@@ -210,7 +210,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    statistics all-reduces of a step, timed. Logged: the ms a step at world
    size 2, the all-reduces' ms, the peak memory a rank and the phase's
    seconds. Two processes sharing a card give no scaling figure;
-20. prints the card's name and power limit, the kernel table as one JSON
+20. exports every detector for serving: ``python -m
+   mxdetection_tpu_torch.tools.export`` writes, ten processes at once,
+   Faster R-CNN and Cascade R-CNN R101-DCN (its seed 0 weights with the
+   offset-conv noise of 8, restored by ``--checkpoint``) at batch 8 and
+   Mask R-CNN, RetinaNet and R-FCN at batch 1, all for 480x640 canvases in
+   bf16, and the five again in f32 for the small input (256x320, batch 2);
+   a process of this script (``--serve-worker DIR``) loads each artifact
+   with ``tools.export.load_serving`` and imports nothing of the models (it
+   fails if it did), serves a warm-up and 20 timed batches of the Faster
+   R-CNN path's canvases (seed 4), counting launches, and the small input,
+   and counts each graph's nodes;
+   then the eager port (``tools.export.ServingModule``) runs the same
+   batches here. Fails unless the served and the eager batches launch K1,
+   K2, K5 and K5b as expected (Faster: K1 1, K2 2; Cascade: K5 27, K5b 3,
+   K1 3, K2 2; Mask: K1 1, K2 2; RetinaNet: K2 1; R-FCN: K2 2 a batch) and
+   the served small f32 detections match the CPU port's at the bounds of 6.
+   Logged: each artifact's MiB, export and load seconds, the served and the
+   eager median ms a batch, and the largest box and score differences and
+   the labels that differ between the served and the eager batch; last, the
+   host time of a call of each operator against its CUDA wrapper's, on a
+   small problem;
+21. prints the card's name and power limit, the kernel table as one JSON
    line, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -251,6 +272,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1082,8 +1104,8 @@ def k3_synthetic(device, p: int, r: int, gen) -> dict:
 class CaptureRoi:
     """While active, keeps a copy of the rois, levels and validity of the
     first call of the RoIAlign backward's wrapper (``backward``) or of the
-    forward's, at output size ``p`` if given (the autograd Function reads
-    the wrappers from their module at each call), and the shape and dtype
+    forward's, at output size ``p`` if given (``mxdet::roi_align`` and its
+    backward read the wrappers from their module at each call), and the shape and dtype
     of its upstream gradient (or of its output, the same): nothing large,
     so the step's peak memory is its own."""
 
@@ -1120,8 +1142,8 @@ class CaptureRoi:
 
 class CaptureNms:
     """While active, keeps a copy of the boxes, validity and IoU threshold
-    of the first ``limit`` calls of K2's wrapper (``ops/nms.py`` reads it
-    from its module at each call): the problems a path hands K2."""
+    of the first ``limit`` calls of K2's wrapper (``mxdet::nms_mask_sorted``
+    reads it from its module at each call, ``ops/library.py``): the problems a path hands K2."""
 
     def __init__(self, limit: int):
         from mxdetection_tpu_torch.ops.cuda import nms as nms_cuda
@@ -1969,7 +1991,7 @@ def small_train_step(cfg, state: dict, batch: dict, draws, device, what: str) ->
     ``state``: (its metrics and per-module grad norms, the norms' running
     statistics after it, on the CPU, the kernels it launched, the model)."""
     from mxdetection_tpu_torch.models.registry import build_detector
-    from mxdetection_tpu_torch.tools.common import read_launches, reset_launches
+    from mxdetection_tpu_torch.ops.cuda import read_launches, reset_launches
     from mxdetection_tpu_torch.train.trainer import Trainer
 
     m = build_detector(cfg, device="cpu", train=True)
@@ -2286,7 +2308,7 @@ def phase_deform_conv_bwd(device) -> dict:
     shapes of the cascade path, batch 8, offsets of std 1.5 cells: f32 dW,
     doffsets and dx within 1e-4 of the largest value, and the bf16 builds on
     the main path's bf16 inputs too; the whole bf16 backward
-    (``DeformConvFunction``) against the f32 plain one, norm-relative under
+    (``mxdet::deform_conv2d``) against the f32 plain one, norm-relative under
     3 % for dx and dW and 6 % for doffsets. Times each kernel, its plain
     version and cuDNN's conv backward of the same shape (dgrad beside K7,
     wgrad beside K6: the same function only at zero offsets), the dW matmul
@@ -3320,11 +3342,12 @@ def dp_worker(rank: int, port: int, tmp: str) -> int:
 
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.layers import SyncBatchNorm
+    from mxdetection_tpu_torch.ops.cuda import read_launches, reset_launches
     from mxdetection_tpu_torch.parallel.dist import all_gather_objects
     from mxdetection_tpu_torch.parallel.mesh import initialize_multihost
     from mxdetection_tpu_torch.tools import eval as teval
     from mxdetection_tpu_torch.tools import train as ttrain
-    from mxdetection_tpu_torch.tools.common import read_launches, reset_launches, seeded_model
+    from mxdetection_tpu_torch.tools.common import seeded_model
 
     device = "cuda:0"  # both ranks share the one card
     torch.cuda.set_device(device)
@@ -3446,9 +3469,10 @@ def results_line(err: str) -> dict:
     return json.loads(lines[0].split(" results ", 1)[1])
 
 
-def run_ranks(cmds: list, timeout: float, what: str) -> None:
+def run_ranks(cmds: list, timeout: float, what: str, names=None) -> list:
     """Run ``cmds`` at once, each with its output to a file and then to the
-    log; a process that exits non-zero ends the others and fails the phase."""
+    log under its name in ``names`` (default: rank r); a process that exits
+    non-zero ends the others and fails the phase. Returns their outputs."""
     import os
     import tempfile
 
@@ -3473,11 +3497,12 @@ def run_ranks(cmds: list, timeout: float, what: str) -> None:
             fh.seek(0)
             outs.append((p.returncode, fh.read()))
             fh.close()
-    for r, (rc, text) in enumerate(outs):
+    for name, (rc, text) in zip(names or [f"rank {r}" for r in range(len(cmds))], outs):
         for line in text.strip().splitlines():
-            log(f"  {what} rank {r}: {line}")
+            log(f"  {what} {name}: {line}")
         if rc != 0:
-            fail(f"{what} rank {r} exited {rc}")
+            fail(f"{what} {name} exited {rc}")
+    return [text for _, text in outs]
 
 
 def phase_dp_world(card: str, sync_per_step: dict) -> dict:
@@ -3554,6 +3579,246 @@ def phase_dp_world(card: str, sync_per_step: dict) -> dict:
                                 for k in res[0]["launches"]}}
 
 
+# --------------------------------------------------------------------------
+# phase 20: serving export
+
+
+SERVING = (  # (label, config, batch, launches a batch of the served program)
+    ("faster", "faster_rcnn_r50_fpn_1x", MAIN_BATCH, {"roi_align": 1.0, "nms": 2.0}),
+    ("cascade", CASCADE, MAIN_BATCH, {"roi_align": 3.0, "nms": 2.0, "deform_conv": 27.0,
+                                      "deform_conv_s2": 3.0}),
+    ("mask", MASK, 1, {"roi_align": 1.0, "nms": 2.0}),
+    ("retinanet", "retinanet_r50_fpn_1x", 1, {"nms": 1.0}),
+    ("rfcn", "rfcn_r50_1x", 1, {"nms": 2.0}))
+SERVING_OUT = ("boxes", "scores", "labels", "valid")
+EXPORT_LINE = re.compile(r"exported (\d+) bytes to \S+ in ([0-9.]+) s")
+
+
+def serving_input(batch: int, device):
+    """The first ``batch`` of the Faster R-CNN path's canvases (seed 4) and
+    their image sizes."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    raw = torch.randint(0, 256, (MAIN_BATCH, 480, 640, 3), generator=gen, dtype=torch.uint8)
+    return raw[:batch].to(device), torch.tensor([[480.0, 640.0]] * batch, device=device)
+
+
+def time_serving(serve, raw, hw) -> tuple:
+    """A warm-up batch and ``TIMED_BATCHES`` timed ones of ``serve`` (raw,
+    hw) -> (boxes, scores, labels, valid), every launch count set to 0 just
+    before and read just after -> (the last batch's detections on the CPU,
+    ms per batch, launches)."""
+    import torch
+
+    from mxdetection_tpu_torch.ops.cuda import read_launches, reset_launches
+
+    reset_launches()
+    serve(raw, hw)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        out = serve(raw, hw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(zip(SERVING_OUT, (t.cpu() for t in out))), times, read_launches()
+
+
+def serve_worker(tmp: str) -> int:
+    """Phase 20's serving process (``--serve-worker DIR``): loads each
+    artifact of ``DIR`` with ``tools.export.load_serving`` on the card,
+    times its batches (``time_serving``) and serves the small f32 input with
+    its small artifact; writes the findings to ``DIR/served.pt``. Imports the
+    operators and nothing of the models: it fails if a module of
+    ``mxdetection_tpu_torch.models`` (or jax) was imported."""
+    import os
+
+    import torch
+
+    from mxdetection_tpu_torch.tools.export import load_serving
+
+    torch.backends.cudnn.allow_tf32 = False  # as the parent's eager runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small_raw, small_hw = small_input()
+    res = {}
+    for label, _, batch, _ in SERVING:
+        t0 = time.perf_counter()
+        serve = load_serving(os.path.join(tmp, f"{label}.pt2"), "cuda")
+        load_s = time.perf_counter() - t0
+        dets, times, launches = time_serving(serve, *serving_input(batch, "cuda"))
+        small = load_serving(os.path.join(tmp, f"{label}_small.pt2"), "cuda")
+        small_dets = {k: t.cpu() for k, t in zip(SERVING_OUT, small(small_raw.cuda(),
+                                                                     small_hw.cuda()))}
+        targets = [str(n.target) for n in serve.graph.nodes]
+        res[label] = {"load_s": load_s, "dets": dets, "ms": times, "launches": launches,
+                      "small": small_dets, "nodes": len(targets),
+                      "cast_nodes": sum(t in ("aten.to.dtype", "aten._assert_tensor_metadata"
+                                                    ".default") for t in targets)}
+        del serve, small
+    res["modules"] = sorted(m for m in sys.modules if m.startswith("mxdetection_tpu_torch"))
+    stray = [m for m in sys.modules if m.startswith("mxdetection_tpu_torch.models")
+             or m.split(".")[0] == "jax"]
+    if stray:
+        fail(f"the serving process imported {stray}")
+    torch.save(res, os.path.join(tmp, "served.pt"))
+    return 0
+
+
+def dispatch_cost(device, card: str, calls: int = 2000) -> None:
+    """The host time of a call of each operator of ``ops/library.py``
+    against a direct call of its CUDA wrapper, on a problem small enough
+    that the host sets the pace: ``calls`` calls each, twice in turns,
+    synchronised at the end of each run; the least of each pair logged."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import library
+    from mxdetection_tpu_torch.ops.cuda.deform_conv import deform_conv2d_cuda
+    from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
+    from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_cuda
+
+    gen = torch.Generator().manual_seed(21)
+    boxes = torch.rand(1, 64, 4, generator=gen).cumsum(-1).to(device)
+    valid = torch.ones(1, 64, dtype=torch.bool, device=device)
+    feats = [torch.randn(1, 16, 16, 64, generator=gen).to(device)]
+    rois = torch.tensor([[[1.0, 1.0, 30.0, 30.0]] * 8], device=device)
+    levels = torch.zeros(1, 8, dtype=torch.int32, device=device)
+    x = torch.randn(1, 8, 8, 64, generator=gen).to(device)
+    off = torch.zeros(1, 8, 8, 18, device=device)
+    w = torch.randn(3, 3, 64, 64, generator=gen).to(device)
+    pairs = {
+        "nms_mask_sorted": (lambda: library.nms_mask_sorted(boxes, valid, 0.5),
+                            lambda: nms_mask_sorted_cuda(boxes, valid, 0.5)),
+        "roi_align": (lambda: library.roi_align(feats, rois, levels, valid[:, :8], [4], 7, 2),
+                      lambda: roi_align_cuda(feats, rois, [4], levels, output_size=7,
+                                             sampling_ratio=2, roi_valid=valid[:, :8])),
+        "deform_conv2d": (lambda: library.deform_conv(x, off, w, 1, 1, None),
+                          lambda: deform_conv2d_cuda(x, off, w))}
+
+    def us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    with torch.no_grad():
+        for name, (op, direct) in pairs.items():
+            op(), direct()  # warm-up
+            times = [(us(op), us(direct)) for _ in range(2)]
+            log(f"operator dispatch ({card}): mxdet::{name} {min(t[0] for t in times):.1f} us a "
+                f"call against its wrapper's {min(t[1] for t in times):.1f} us, {calls} calls "
+                "on a small problem")
+
+
+def phase_serving_export(device, card: str) -> dict:
+    """Phase 20 (see the module's docstring): every detector exported by
+    ``tools.export`` at full width, loaded and served in a process without
+    the model code, against the eager port. Returns {path: launches}."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.tools.common import seed_offset_convs, seeded_model
+    from mxdetection_tpu_torch.tools.export import ServingModule
+    from mxdetection_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    here = os.path.abspath(__file__)
+    small_raw, small_hw = small_input()
+    small_over = ["--override", *(f"{k}={v!r}" for k, v in SMALL_OVERRIDES.items())]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Cascade's weights: seed 0 with phase 8's offset-conv noise, in a
+        # checkpoint that tools.export restores (--checkpoint)
+        ckpt = os.path.join(tmp, "cascade_ckpt")
+        model = seeded_model(load_config(CASCADE).override(**SMALL_OVERRIDES), device)  # f32
+        seed_offset_convs(model, load_config(CASCADE), *serving_input(MAIN_BATCH, device),
+                          torch.Generator().manual_seed(11))
+        os.makedirs(ckpt)
+        torch.save({"step": 0, "model": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   os.path.join(ckpt, "step_0.pt"))
+        del model
+
+        def export_cmd(label, name, batch, raw_hw, extra):
+            return [sys.executable, "-m", "mxdetection_tpu_torch.tools.export", "--config", name,
+                    "--batch-size", str(batch), "--raw-hw", *map(str, raw_hw), "--out",
+                    os.path.join(tmp, f"{label}.pt2"),
+                    *(["--checkpoint", ckpt] if name == CASCADE else []), *extra]
+
+        # all ten exports at once, a thread each: each traces in Python
+        runs = [(label + suffix, export_cmd(label + suffix, name, 2 if suffix else batch,
+                                            raw_hw, extra))
+                for suffix, raw_hw, extra in (("", (480, 640), []),
+                                              ("_small", (240, 300), small_over))
+                for label, name, batch, _ in SERVING]
+        t0 = time.perf_counter()
+        outs = run_ranks([["env", "OMP_NUM_THREADS=1", *cmd] for _, cmd in runs], 600,
+                         "tools.export", [name for name, _ in runs])
+        exports = {}
+        for (name, _), text in zip(runs, outs):
+            m = EXPORT_LINE.search(text)
+            if m is None:
+                fail(f"tools.export {name} printed no summary line")
+            exports[name] = (int(m.group(1)) / 2**20, float(m.group(2)))
+        log(f"serving export: the ten exports ran at once in {time.perf_counter() - t0:.1f} s "
+            f"({os.cpu_count()} CPU cores)")
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, here, "--serve-worker", tmp]], 900, "serving worker",
+                  ["process"])
+        serve_s = time.perf_counter() - t0
+        served = torch.load(os.path.join(tmp, "served.pt"), weights_only=True)
+        log(f"serving worker: {serve_s:.1f} s with start-up; modules of the port it imported: "
+            f"{served['modules']}")
+
+        for label, name, batch, expected in SERVING:
+            s = served[label]
+            cfg = load_config(name)
+            model = seeded_model(cfg, device)
+            if name == CASCADE:
+                CheckpointManager(ckpt).load_model(model)
+            raw, hw = serving_input(batch, device)
+            dets, ms, eager = time_serving(ServingModule(model, cfg), raw, hw)
+            del model
+            check_dets(s["dets"], hw.cpu(), f"served {label}")
+            per_batch = {k: n / (TIMED_BATCHES + 1) for k, n in s["launches"].items()}
+            eager_per_batch = {k: n / (TIMED_BATCHES + 1) for k, n in eager.items()}
+            box = (s["dets"]["boxes"] - dets["boxes"]).abs().max().item()
+            score = (s["dets"]["scores"] - dets["scores"]).abs().max().item()
+            labels = int((s["dets"]["labels"] != dets["labels"]).sum())
+            same_valid = torch.equal(s["dets"]["valid"], dets["valid"])
+            mib, export_s = exports[label]
+            log(f"served {label} ({name}, batch {batch}, 480x640 -> "
+                f"{cfg.data.pad_h}x{cfg.data.pad_w} {cfg.backbone.dtype}): artifact {mib:.1f} "
+                f"MiB, exported in {export_s:.1f} s (ten at once), loaded in "
+                f"{s['load_s']:.2f} s, {s['nodes']} graph nodes ({s['cast_nodes']} of them "
+                f"dtype casts and their metadata asserts); median ms a batch served "
+                f"{statistics.median(s['ms']):.2f} (max {max(s['ms']):.2f}) vs eager "
+                f"{statistics.median(ms):.2f} (max {max(ms):.2f}) ({card}); served vs eager: max "
+                f"box diff {box:.3e} px, max score diff {score:.3e}, {labels} labels differ, "
+                f"same valid {same_valid}; launches a batch {per_batch}")
+            if per_batch != expected or eager_per_batch != expected:
+                fail(f"served {label}: launches a batch {per_batch}, eager {eager_per_batch}, "
+                     f"expected {expected}")
+            launches[f"serving_{label}"] = s["launches"]
+
+            small_cfg = cfg.override(**SMALL_OVERRIDES)
+            cpu_model = seeded_model(small_cfg, "cpu")
+            if name == CASCADE:
+                CheckpointManager(ckpt).load_model(cpu_model)
+            cpu = dict(zip(SERVING_OUT, ServingModule(cpu_model, small_cfg)(small_raw, small_hw)))
+            check_parity(cpu, s["small"], small_hw,
+                         f"served {label} small f32 artifact (cuDNN and matmul TF32 off)")
+    dispatch_cost(device, card)
+    log(f"phase 20 (serving export) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3572,6 +3837,8 @@ def main() -> int:
                              "phase 2's inputs and log its largest difference and time")
     parser.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "DIR"), default=None,
                         help="run one rank of phase 19's two-rank world (phase 19 starts it)")
+    parser.add_argument("--serve-worker", metavar="DIR", default=None,
+                        help="load and serve phase 20's artifacts in DIR (phase 20 starts it)")
     args = parser.parse_args()
     try:
         import torch
@@ -3585,6 +3852,8 @@ def main() -> int:
         fail("mxdetection_tpu_torch not importable: run from the root of the repository")
     if args.dp_worker:
         return dp_worker(int(args.dp_worker[0]), int(args.dp_worker[1]), args.dp_worker[2])
+    if args.serve_worker:
+        return serve_worker(args.serve_worker)
     device = "cuda"
 
     card = phase_env()
@@ -3673,6 +3942,7 @@ def main() -> int:
     phase_bench_tools(card)
     paths.update(phase_dp_world(card, {k: n / TRAIN_STEPS
                                        for k, n in paths["sync_bn_train"].items()}))
+    paths.update(phase_serving_export(device, card))
 
     def entry(name, source, replaces, counter, res, dtype_res=None):
         timed = res if dtype_res is None else dtype_res

@@ -1,5 +1,5 @@
 // Deformable convolution v1 backward (3x3), sm_90a: the two kernels that
-// follow dpatch = g @ W^T in the backward of ops/dcn.py::DeformConvFunction.
+// follow dpatch = g @ W^T in ops/dcn.py::deform_conv2d_backward.
 //
 // Replaces the four TPU kernels of mxdetection_tpu/ops/pallas/dcn.py:
 //   _patches_kernel (K6, stride 1, :261) and _patches_kernel_s2 (K6b, stride

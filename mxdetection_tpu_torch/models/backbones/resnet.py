@@ -5,9 +5,10 @@ is the plain 7x7/2 conv + 3x3/2 max-pool; the JAX package's opt-in
 space-to-depth stem is a TPU measure and is not ported.
 
 Deformable stages (``dcn_stages``): their 3x3 is a ``DeformConv``, whose
-offsets come from an f32 conv and whose sampling and product run in
-``ops/dcn.py``'s autograd Function (on the card the kernels K5/K5b forward,
-K6/K6b and K7/K7b backward; on the CPU their plain versions). The gradient
+offsets come from an f32 conv and whose sampling and product run in the
+operator ``mxdet::deform_conv2d`` (``ops/dcn.py``, ``ops/library.py``; on
+the card the kernels K5/K5b forward, K6/K6b and K7/K7b backward; on the
+CPU their plain versions). The gradient
 reaches the layer's input through both branches: the sampling's dx and the
 offset conv's input gradient.
 

@@ -17,8 +17,9 @@ Counterparts of ``mxdetection_tpu/ops/pallas/dcn.py``:
   shared-memory window; ``col2im_window_split`` is the plain model of that
   partition.
 
-Reached from ``ops/dcn.py::DeformConvFunction`` for CUDA tensors; the plain
-versions are ``ops/dcn.py::deform_conv2d``, ``deform_wgrad_doffsets`` and
+Reached from ``ops/dcn.py`` for CUDA tensors, through the operator
+``mxdet::deform_conv2d`` (``ops/library.py``) and its backward
+``deform_conv2d_backward``; the plain versions are ``ops/dcn.py::deform_conv2d``, ``deform_wgrad_doffsets`` and
 ``deform_col2im``. One kernel serves both strides; each stride has its own
 launch counter.
 """

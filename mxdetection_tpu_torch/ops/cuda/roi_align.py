@@ -5,8 +5,9 @@ Counterparts of ``mxdetection_tpu/ops/pallas/roi_align.py``: ``_kernel``
 (K1, the forward), ``_bwd_kernel`` (K3, the backward) and ``kern`` in
 ``_convert_pallas`` (K3b, the f32 -> bf16 convert of K3's sums, here the
 epilogue of K3's kernel). Reached from
-``ops/roi_align.py::multilevel_roi_align`` for CUDA tensors (the backward
-through its ``autograd.Function``); the plain versions are
+``ops/roi_align.py::multilevel_roi_align`` for CUDA tensors, through the
+operator ``mxdet::roi_align`` and its registered backward
+(``ops/library.py``); the plain versions are
 ``multilevel_roi_align_plain`` and torch autograd of it.
 ``roi_align_bwd_tiles`` is the plain model of K3's partition into output
 tiles and of its order of sums.

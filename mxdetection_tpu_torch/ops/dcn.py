@@ -1,8 +1,9 @@
 """Deformable convolution v1 — port of ``mxdetection_tpu.ops.dcn``.
 
-``deform_conv2d_batched`` runs ``DeformConvFunction``, an autograd
-Function whose forward and backward dispatch on the device of the input:
-CPU tensors take the plain versions below, CUDA tensors the hand-written
+``deform_conv2d_batched`` calls the registered operator
+``mxdet::deform_conv2d`` (``ops/library.py``), whose forward and backward
+(``deform_conv2d_backward``) dispatch on the device of the input: CPU
+tensors take the plain versions below, CUDA tensors the hand-written
 kernels through ``ops/cuda/deform_conv.py``, any other device raises.
 
 - Forward: ``deform_conv2d``, the plain version (the JAX package's gather
@@ -220,47 +221,43 @@ def deform_wgrad_doffsets(x: torch.Tensor, offsets: torch.Tensor, dpatch: torch.
     return _matmul_f32(patches.reshape(n, -1).t(), g), doff
 
 
-class DeformConvFunction(torch.autograd.Function):
-    """(x, offsets, weight, stride, dilation, radius) -> the deformable conv,
-    with the backward of the module docstring. Saves only (x, offsets,
-    weight): the patches are rebuilt in the backward, as the JAX
-    ``custom_vjp`` and the CPU path's ``jax.checkpoint`` do."""
+def deform_conv2d_backward(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                           g: torch.Tensor, *, stride: int = 1, dilation: int = 1,
+                           radius: float | None = None) -> tuple:
+    """The backward of the module docstring from the residuals (x, offsets,
+    weight) and the output's gradient g (B, Ho, Wo, Cout) -> (dx, doffsets,
+    dW) in x's, the offsets' and the weight's dtypes: the kernels for CUDA
+    tensors, the plain versions on the CPU."""
+    conf = dict(stride=stride, dilation=dilation, radius=radius)
+    k, cin, cout = weight.shape[0], weight.shape[2], weight.shape[3]
+    b, ho, wo = offsets.shape[:3]
+    g2 = g.to(x.dtype).reshape(b * ho * wo, cout).contiguous()
+    wmat = weight.to(x.dtype).reshape(k * k * cin, cout)
+    dpatch = torch.matmul(g2, wmat.t()).reshape(b, ho, wo, k * k * cin)
+    if x.device.type == "cuda":
+        from .cuda.deform_conv import deform_col2im_cuda, deform_wgrad_doffsets_cuda
 
-    @staticmethod
-    def forward(ctx, x, offsets, weight, stride, dilation, radius):
-        ctx.conf = dict(stride=stride, dilation=dilation, radius=radius)
-        ctx.save_for_backward(x, offsets, weight)
-        if x.device.type == "cuda":
-            from .cuda.deform_conv import deform_conv2d_cuda
-
-            return deform_conv2d_cuda(x, offsets, weight, **ctx.conf)
-        return deform_conv2d(x, offsets, weight, **ctx.conf)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, offsets, weight = ctx.saved_tensors
-        k, cin, cout = weight.shape[0], weight.shape[2], weight.shape[3]
-        b, ho, wo = offsets.shape[:3]
-        g2 = g.to(x.dtype).reshape(b * ho * wo, cout).contiguous()
-        wmat = weight.to(x.dtype).reshape(k * k * cin, cout)
-        dpatch = torch.matmul(g2, wmat.t()).reshape(b, ho, wo, k * k * cin)
-        if x.device.type == "cuda":
-            from .cuda.deform_conv import deform_col2im_cuda, deform_wgrad_doffsets_cuda
-
-            dw, doff = deform_wgrad_doffsets_cuda(x, offsets, dpatch, g2, **ctx.conf)
-            dx = deform_col2im_cuda(dpatch, offsets, x.shape, **ctx.conf)
-        else:
-            dw, doff = deform_wgrad_doffsets(x, offsets, dpatch, g2, **ctx.conf)
-            dx = deform_col2im(dpatch, offsets, x.shape, **ctx.conf)
-        return (dx.to(x.dtype), doff.to(offsets.dtype),
-                dw.reshape(k, k, cin, cout).to(weight.dtype), None, None, None)
+        dw, doff = deform_wgrad_doffsets_cuda(x, offsets, dpatch, g2, **conf)
+        dx = deform_col2im_cuda(dpatch, offsets, x.shape, **conf)
+    else:
+        dw, doff = deform_wgrad_doffsets(x, offsets, dpatch, g2, **conf)
+        dx = deform_col2im(dpatch, offsets, x.shape, **conf)
+    return (dx.to(x.dtype), doff.to(offsets.dtype),
+            dw.reshape(k, k, cin, cout).to(weight.dtype))
 
 
 def deform_conv2d_batched(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor, *,
                           stride: int = 1, dilation: int = 1,
                           radius: float | None = None) -> torch.Tensor:
     """Deformable conv over a batch, differentiable in x, offsets and
-    weight: the kernels for CUDA tensors, the plain versions on the CPU."""
+    weight: the registered operator ``mxdet::deform_conv2d``
+    (``ops/library.py``), the kernels for CUDA tensors, the plain versions
+    on the CPU. Saves only (x, offsets, weight) for the backward
+    (``deform_conv2d_backward``): the patches are rebuilt there, as the JAX
+    ``custom_vjp`` and the CPU path's ``jax.checkpoint`` do."""
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"deform_conv2d_batched: no implementation for device {x.device}")
-    return DeformConvFunction.apply(x, offsets, weight, stride, dilation, radius)
+    from . import library
+
+    return library.deform_conv(x, offsets, weight, stride, dilation,
+                               None if radius is None else float(radius))

@@ -5,10 +5,12 @@ Every function here is batched over leading dimensions: a call with boxes
 card one kernel launch serves them all (per (image, level) for the RPN, per
 image for the class-aware test NMS).
 
-``nms_mask_sorted`` is the dispatch point: CPU tensors take
-``nms_mask_sorted_plain`` (N vectorised suppression steps over the IoU
-matrix, the ``lax.fori_loop`` of the JAX reference), CUDA tensors take the
-bitmask kernel of ``ops/cuda/nms.py``; any other device raises. Both give the
+``nms_mask_sorted`` is the dispatch point: it calls the registered
+operator ``mxdet::nms_mask_sorted`` (``ops/library.py``), whose CPU
+implementation is ``nms_mask_sorted_plain`` (N vectorised suppression steps
+over the IoU matrix, the ``lax.fori_loop`` of the JAX reference) and whose
+CUDA one the bitmask kernel of ``ops/cuda/nms.py``; any other device raises.
+An exported program holds the operator as one node. Both give the
 exact greedy keep mask over the whole sorted set (no early exit), so a
 top-``max_out`` selection of it equals the JAX one.
 
@@ -59,14 +61,13 @@ def nms_mask_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 def nms_mask_sorted(boxes: torch.Tensor, valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
-    """Device dispatch of the sorted greedy keep mask, (P, N, 4) -> (P, N)."""
-    if boxes.device.type == "cpu":
-        return nms_mask_sorted_plain(boxes, valid, iou_thr)
-    if boxes.device.type == "cuda":
-        from .cuda.nms import nms_mask_sorted_cuda
+    """Device dispatch of the sorted greedy keep mask, (P, N, 4) -> (P, N):
+    the operator ``mxdet::nms_mask_sorted`` (``ops/library.py``)."""
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"nms: no implementation for device {boxes.device}")
+    from . import library
 
-        return nms_mask_sorted_cuda(boxes, valid, iou_thr)
-    raise RuntimeError(f"nms: no implementation for device {boxes.device}")
+    return library.nms_mask_sorted(boxes, valid, float(iou_thr))
 
 
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,

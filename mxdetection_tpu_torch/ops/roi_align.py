@@ -1,13 +1,14 @@
 """Multilevel RoIAlign over an FPN pyramid — port of ``mxdetection_tpu.ops.roi_align``.
 
-``multilevel_roi_align`` dispatches on the device of its inputs: CPU tensors
-take ``multilevel_roi_align_plain`` (the flat-buffer gather of the JAX
-reference), differentiated by torch autograd; CUDA tensors take an
-``autograd.Function`` whose forward is the hand-written kernel K1 and whose
-backward is K3 (with the bf16 convert K3b as its epilogue), in
-``ops/cuda/roi_align.py``; any other device raises. The FPN level of each
-roi is computed here, once, by ``fpn_level_assign``, and handed to either
-path, so the two never disagree about a roi that sits on a level boundary.
+``multilevel_roi_align`` calls the registered operator ``mxdet::roi_align``
+(``ops/library.py``), which dispatches on the device of its inputs: CPU
+tensors take ``multilevel_roi_align_plain`` (the flat-buffer gather of the
+JAX reference), differentiated by torch autograd of it; CUDA tensors take
+the hand-written kernel K1, with K3 (and the bf16 convert K3b as its
+epilogue) as its backward, in ``ops/cuda/roi_align.py``; any other device
+raises. The FPN level of each roi is computed here, once, by
+``fpn_level_assign``, and handed to either path, so the two never disagree
+about a roi that sits on a level boundary.
 
 Semantics are torchvision/Detectron2 ``aligned=False`` RoIAlign: each of the
 P x P bins averages ``sampling_ratio**2`` bilinear samples; samples within
@@ -159,39 +160,11 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     """
     levels = roi_levels(rois, len(features), min_level=min_level,
                         canonical_scale=canonical_scale, canonical_level=canonical_level)
-    if rois.device.type == "cpu":
-        return multilevel_roi_align_plain(features, rois, strides, levels,
-                                          output_size=output_size,
-                                          sampling_ratio=sampling_ratio, roi_valid=roi_valid)
-    if rois.device.type == "cuda":
-        if roi_valid is None:
-            roi_valid = torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device)
-        return _RoIAlignCuda.apply(rois, levels, roi_valid, tuple(strides), output_size,
-                                   sampling_ratio, *features)
-    raise RuntimeError(f"multilevel_roi_align: no implementation for device {rois.device}")
+    if rois.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"multilevel_roi_align: no implementation for device {rois.device}")
+    from . import library
 
-
-class _RoIAlignCuda(torch.autograd.Function):
-    """K1 forward, K3 backward (its epilogue K3b for bf16 features). The gradient flows to the features
-    only: rois and ``roi_valid`` get none, as in the JAX package's
-    ``make_trainable_roi_align``."""
-
-    @staticmethod
-    def forward(ctx, rois, levels, roi_valid, strides, output_size, sampling_ratio, *features):
-        from .cuda.roi_align import roi_align_cuda
-
-        ctx.save_for_backward(rois, levels, roi_valid)
-        ctx.shapes = [tuple(f.shape[1:3]) for f in features]
-        ctx.strides, ctx.sampling_ratio, ctx.dtype = strides, sampling_ratio, features[0].dtype
-        return roi_align_cuda(list(features), rois, strides, levels, output_size=output_size,
-                              sampling_ratio=sampling_ratio, roi_valid=roi_valid)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        from .cuda.roi_align import roi_align_bwd_cuda
-
-        rois, levels, roi_valid = ctx.saved_tensors
-        grads = roi_align_bwd_cuda(grad_out, ctx.shapes, rois, ctx.strides, levels,
-                                   sampling_ratio=ctx.sampling_ratio, roi_valid=roi_valid,
-                                   out_dtype=ctx.dtype)
-        return (None,) * 6 + tuple(grads)
+    if roi_valid is None:
+        roi_valid = torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device)
+    return library.roi_align(list(features), rois, levels, roi_valid, list(strides),
+                             output_size, sampling_ratio)

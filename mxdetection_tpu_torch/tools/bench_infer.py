@@ -52,9 +52,9 @@ import torch
 
 from ..config import load_config
 from ..models.registry import require_device
+from ..ops.cuda import read_launches, reset_launches
 from .common import (bench_log, dcn_layers, device_name, infer_batch, log_run_facts,
-                     parse_overrides, read_launches, reset_launches, seed_offset_convs,
-                     seeded_model)
+                     parse_overrides, seed_offset_convs, seeded_model)
 
 REFERENCE_IMGS_PER_SEC = 12.0  # documented proxy denominator, see the module's docstring
 HEADLINE = "faster_rcnn_r50_fpn_1x"

@@ -43,11 +43,11 @@ import numpy as np
 import torch
 
 from ..config import load_config
+from ..ops.cuda import read_launches, reset_launches
 from ..parallel.mesh import rank, world_size
 from ..train.trainer import Trainer
 from .common import (bench_log, dcn_layers, device_name, log_run_facts, parse_overrides,
-                     process_group, read_launches, reset_launches, seed_offset_convs,
-                     seeded_model)
+                     process_group, seed_offset_convs, seeded_model)
 
 WARMUP, ITERS = 1, 10
 

@@ -177,27 +177,6 @@ def infer_batch(model, cfg: Config, raw, hw, dtype, masks: bool = True, *, flip=
     return dets, out
 
 
-def launch_counters() -> list:
-    """Every kernel wrapper's launch count (``ops/cuda``), K1 to K7b."""
-    from ..ops.cuda import deform_conv, iou, nms, roi_align
-
-    return [roi_align.launch_count, nms.launch_count, roi_align.bwd_launch_count,
-            roi_align.bwd_bf16_launch_count, iou.launch_count, iou.pass_a_count,
-            iou.pass_b_count, deform_conv.launch_count, deform_conv.s2_launch_count,
-            deform_conv.wgrad_launch_count, deform_conv.wgrad_s2_launch_count,
-            deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count]
-
-
-def reset_launches() -> None:
-    for c in launch_counters():
-        c.reset()
-
-
-def read_launches() -> dict:
-    """{kernel: launches} of the kernels launched since ``reset_launches``."""
-    return {c.name: c.n for c in launch_counters() if c.n}
-
-
 def bench_log(msg: str) -> None:
     """A throughput tool's log line, on stderr: stdout holds only its JSON line."""
     print(msg, file=sys.stderr, flush=True)

@@ -1,9 +1,10 @@
 """Port parity, the Cascade R-CNN R101-DCN training step: the deformable
-conv's backward (``ops/dcn.py::DeformConvFunction``) and the cascade's
+conv's backward (``ops/dcn.py::deform_conv2d_backward``, the registered
+backward of ``mxdet::deform_conv2d``) and the cascade's
 training path of ``mxdetection_tpu_torch`` against the JAX package on the
 CPU, in float32, from numpy-seeded inputs.
 
-On the CPU the Function runs its plain versions (``deform_wgrad_doffsets``,
+On the CPU the backward runs its plain versions (``deform_wgrad_doffsets``,
 built on ``deform_patches_doffsets`` and the dW product, and
 ``deform_col2im``, beside dpatch = g W^T); the CUDA kernels (K6/K6b, the
 fused weight gradient, and K7/K7b, ``csrc/deform_conv_bwd.cu``) cannot run

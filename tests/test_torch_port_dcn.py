@@ -410,7 +410,7 @@ def test_cascade_build_and_training_guard():
     its compute dtype but the offset convs in f32, as the JAX layer; in
     train mode every parameter stays an f32 master weight, and a training
     step runs: three stages, and a gradient for every deformable layer's
-    weight and offset conv (through ``DeformConvFunction``'s backward). The
+    weight and offset conv (through ``mxdet::deform_conv2d``'s registered backward). The
     step runs with one DCN stage, stage 4 (a stride-2 and two stride-1
     layers), to keep the test short."""
     cfg = load_config(CASCADE)

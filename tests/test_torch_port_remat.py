@@ -4,7 +4,7 @@ R-CNN training step at the small size of ``test_torch_port_cascade_train.py``
 recomputed in the backward (``torch.utils.checkpoint``), against the same
 step without, on the CPU.
 
-The recompute runs each DCN layer's ``DeformConvFunction`` forward a second
+The recompute runs each DCN layer's ``mxdet::deform_conv2d`` forward a second
 time (K5/K5b on the card, whose launches double; the plain version here).
 The remat step is also held against the JAX step with ``backbone.remat``
 (``nn.remat(Bottleneck)``), run live at the bounds of
