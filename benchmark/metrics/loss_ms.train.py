@@ -1,0 +1,6 @@
+"""Mean device-timeline ms a step of the loss span (CUDA events at the step's boundaries)."""
+from benchmark.readers import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, "train", "loss")
