@@ -238,10 +238,13 @@ Any failure exits non-zero before the last line. Without a CUDA device it
 exits non-zero at once: there is no CPU fallback.
 
 ``python3 chip_smoke.py --profile DIR`` also splits an inference batch of
-each detector and a training step into their stages (CUDA events at the
-module boundaries; for Mask R-CNN the mask branch's RoIAlign, head, and
-targets and loss) and traces each with ``torch.profiler``: kernel time by
-name, the device's idle share, and Chrome traces written to
+each detector and a training step into the port's spans (``infer.*`` and
+``train.*`` of ``utils/profiling.py``, CUDA events at each span's ends, a
+span's children's time taken out of its own; for Mask R-CNN
+``infer.masks`` and the mask term of the loss alone) and traces each with
+``torch.profiler`` through ``utils.profiling.trace``: kernel time by name,
+the device's idle share, the spans' and ops' device time, and Chrome traces
+(the spans above their kernels) written to
 ``DIR/<path>_trace.json.gz`` (``main_path``, ``cascade_path``,
 ``train_step``, ``cascade_train``, ``sync_bn_train``, ``mask_path``,
 ``mask_train``; the RetinaNet and R-FCN paths are not split).
@@ -1428,77 +1431,63 @@ def phase_main_path(device, card: str, counters, profile_dir: str | None,
 # optional phase 5 (--profile DIR): where the main path's time goes
 
 
-def stage_breakdown(model, cfg, raw, hw, dtype, reps: int) -> dict:
-    """Mean device-timeline ms of each stage of a main-path batch, split at
-    the module boundaries by CUDA events recorded from forward hooks (with
-    a mask head, the mask branch after the postprocess: its RoIAlign, the
-    head, the class slice and sigmoid). A stage's time includes any device
-    idle time inside it."""
-    import torch
+def span_stages(run, reps: int, device) -> dict:
+    """Mean device-timeline ms of each span of the port (``utils/profiling.py``)
+    over ``reps`` calls of ``run``, less its children's, so that the stages
+    add up to the whole call: {span: (device ms, host self ms)}. A stage's
+    device time includes any device idle time inside it."""
+    from mxdetection_tpu_torch.utils.profiling import Recorder
 
-    from mxdetection_tpu_torch.models.detectors.rcnn import mask_probs
-
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    hooks = [
-        model.backbone.register_forward_pre_hook(lambda *_: mark("batch_transform")),
-        model.backbone.register_forward_hook(lambda *_: mark("backbone")),
-        model.fpn.register_forward_hook(lambda *_: mark("fpn")),
-        model.rpn.register_forward_hook(lambda *_: mark("rpn_head")),
-    ]
-    n = model.num_stages
-    for i in range(n):  # a cascade stage: (decode of the last +) RoIAlign, then its head
-        before = "proposals + roi_align" if i == 0 else f"decode{i - 1} + roi_align{i}"
-        after = "bbox_head" if n == 1 else f"bbox_head{i}"
-        hooks += [
-            model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
-            model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
-        ]
-    if model.mask_head is not None:
-        hooks += [
-            model.mask_head.register_forward_pre_hook(lambda *_: mark("mask roi_align")),
-            model.mask_head.register_forward_hook(lambda *_: mark("mask_head")),
-        ]
-    totals = {}
-    try:
+    with Recorder(device, events=True) as rec:
         for _ in range(reps):
-            marks.clear()
-            mark("start")
-            dets, out = detect(model, cfg, raw, hw, dtype, masks=False)
-            mark("rcnn_postprocess")
-            if model.mask_head is not None:
-                mask_probs(model, out, dets, out["im_info"])
-                mark("mask class slice + sigmoid")
-            torch.cuda.synchronize()
-            for (_, a), (name, b) in zip(marks, marks[1:]):
-                totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / reps
-    finally:
-        for h in hooks:
-            h.remove()
+            run()
+    records = rec.records()
+    child = {}
+    for r in records:
+        if r["parent"] is not None:
+            child[r["parent"]] = child.get(r["parent"], 0.0) + r["device_ms"]
+    totals = {}
+    for i, r in enumerate(records):
+        dev, host = totals.get(r["name"], (0.0, 0.0))
+        totals[r["name"]] = (dev + (r["device_ms"] - child.get(i, 0.0)) / reps,
+                             host + r["self_ms"] / reps)
     return totals
 
 
+def log_stages(label: str, stages: dict) -> None:
+    total = sum(ms for ms, _ in stages.values())
+    for name, (ms, host) in stages.items():
+        log(f"profile {label} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%), "
+            f"host self {host:.3f} ms")
+
+
+def stage_breakdown(model, cfg, raw, hw, dtype, reps: int) -> dict:
+    """``span_stages`` of a main-path batch (``infer_batch``: the
+    ``infer.*`` spans; with a mask head, ``infer.masks``)."""
+    return span_stages(lambda: detect(model, cfg, raw, hw, dtype), reps, raw.device)
+
+
 def trace(run, reps: int, label: str, path: str) -> None:
-    """``reps`` calls of ``run`` under torch.profiler: device busy time, idle
-    share, the 20 costliest kernels a call, and a Chrome trace at ``path``."""
+    """``reps`` calls of ``run`` under torch.profiler (``utils.profiling.trace``,
+    the port's spans as ranges): device busy time, idle share, the 20
+    costliest kernels a call, the ops' (and spans') device time, and a
+    Chrome trace at ``path``."""
     import os
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from mxdetection_tpu_torch.utils.profiling import trace as port_trace
+
+    with port_trace(os.path.dirname(path), "cuda", os.path.basename(path)) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    spans = {r["name"] for r in prof.recorder.records()}  # their device copies are no kernels
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and e.key not in spans),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile {label}: {reps} under torch.profiler: wall {wall_ms:.2f} ms, device busy "
@@ -1515,8 +1504,6 @@ def trace(run, reps: int, label: str, path: str) -> None:
     for e in ops[:15]:
         ms = e.device_time_total / 1e3 / reps
         log(f"profile {label} op {ms:8.3f} ms {e.count // reps:6d} calls  {e.key[:90]}")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
     log(f"profile {label}: trace written to {path}")
 
 
@@ -1524,9 +1511,7 @@ def phase_profile(model, cfg, raw, hw, dtype, out_dir: str, label: str = "main_p
     import os
 
     stages = stage_breakdown(model, cfg, raw, hw, dtype, reps=5)
-    total = sum(stages.values())
-    for name, ms in stages.items():
-        log(f"profile {label} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+    log_stages(label, stages)
     trace(lambda: detect(model, cfg, raw, hw, dtype), 2, f"{label} batch",
           os.path.join(out_dir, f"{label}_trace.json.gz"))
 
@@ -2069,71 +2054,21 @@ def small_train_parity(device, name: str = "faster_rcnn_r50_fpn_1x", state=None,
 
 
 def train_stage_breakdown(trainer, batch, reps: int) -> dict:
-    """Mean device-timeline ms of each stage of a training step (the calls
-    of ``Trainer.run_step``, split at the module boundaries by CUDA events),
-    and, with a mask head, the time of the mask term of the loss alone
-    (inside the loss stage) -> (stages, {name: ms} outside the step)."""
+    """``span_stages`` of ``Trainer.run_step`` (the ``train.*`` spans) and,
+    with a mask head, the time of the mask term of the loss alone (inside
+    ``train.loss``) -> (stages, {name: ms} outside the step)."""
     import torch
 
-    from mxdetection_tpu_torch.models.detectors.rcnn import mask_loss, rcnn_loss
+    from mxdetection_tpu_torch.models.detectors.rcnn import mask_loss
 
-    model, marks = trainer.model, []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    hooks = [
-        model.backbone.register_forward_hook(lambda *_: mark("backbone")),
-        model.fpn.register_forward_hook(lambda *_: mark("fpn")),
-        model.rpn.register_forward_hook(lambda *_: mark("rpn_head")),
-    ]
-    n = model.num_stages
-    for i in range(n):  # a cascade stage: (decode + relabel of the last +) RoIAlign, its head
-        before = ("proposals + sample_rois + roi_align" if i == 0
-                  else f"decode{i - 1} + relabel{i} + roi_align{i}")
-        after = "bbox_head" if n == 1 else f"bbox_head{i}"
-        hooks += [
-            model.bbox_head(i).register_forward_pre_hook(lambda *_, b=before: mark(b)),
-            model.bbox_head(i).register_forward_hook(lambda *_, a=after: mark(a)),
-        ]
-    mask = model.mask_head is not None
-    if mask:
-        hooks += [
-            model.mask_head.register_forward_pre_hook(
-                lambda *_: mark("reg targets + mask roi_align")),
-            model.mask_head.register_forward_hook(lambda *_: mark("mask_head")),
-        ]
-    totals, apart = {}, {}
-    try:
-        for _ in range(reps):
-            marks.clear()
-            mark("start")
-            tb = trainer.device_batch(batch)
-            mark("batch_transform")
-            for p in trainer.params:
-                p.grad = None
-            out = model.forward_train(tb, trainer.draws)
-            mark("mask targets" if mask else "targets")
-            loss, _ = rcnn_loss(out, tb, trainer.draws, trainer.cfg)
-            mark("rcnn_loss (anchor assign, mask loss)" if mask else "rcnn_loss (anchor assign)")
-            loss.backward()
-            mark("backward")
-            trainer.optimizer.step([p.grad for p in trainer.params])
-            mark("optimizer")
-            torch.cuda.synchronize()
-            for (_, a), (name, b) in zip(marks, marks[1:]):
-                totals[name] = totals.get(name, 0.0) + a.elapsed_time(b) / reps
-            if mask:
-                with torch.no_grad():
-                    ms = time_ms(lambda: mask_loss(out, trainer.cfg), reps=1)
-                apart["mask loss (in rcnn_loss)"] = apart.get("mask loss (in rcnn_loss)",
-                                                              0.0) + ms / reps
-    finally:
-        for h in hooks:
-            h.remove()
-    return totals, apart
+    stages = span_stages(lambda: trainer.run_step(batch), reps, trainer.device)
+    apart = {}
+    if trainer.model.mask_head is not None:
+        out = trainer.model.forward_train(trainer.device_batch(batch), trainer.draws)
+        with torch.no_grad():
+            apart["mask loss (in rcnn_loss)"] = time_ms(lambda: mask_loss(out, trainer.cfg),
+                                                        reps=reps)
+    return stages, apart
 
 
 def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str | None,
@@ -2181,9 +2116,7 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
         + f"; launches per step {({k: n / TRAIN_STEPS for k, n in launches.items()})}")
     if profile_dir is not None:
         stages, apart = train_stage_breakdown(trainer, batch, reps=3)
-        total = sum(stages.values())
-        for name, ms in stages.items():
-            log(f"profile {what} stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+        log_stages(what, stages)
         for name, ms in apart.items():
             log(f"profile {what}: {name} alone {ms:.3f} ms")
         trace(lambda: trainer.run_step(batch), 2, f"{what} step",

@@ -50,6 +50,7 @@ from ...ops import nms as nms_lib
 from ...ops.mask_target import mask_targets_for_rois
 from ...ops.proposals import generate_proposals
 from ...ops.roi_align import multilevel_roi_align
+from ...utils.profiling import annotate
 from ..backbones.resnet import ResNet
 from ..heads.bbox_head import BBoxHead, MaskHead
 from ..heads.rpn import RPNHead
@@ -166,34 +167,40 @@ class RCNN(nn.Module):
 
     @torch.no_grad()
     def forward_test(self, images: torch.Tensor, im_info: torch.Tensor) -> dict:
-        """images (B, H, W, 3) NHWC, im_info (B, 3) rows (h, w, scale)."""
+        """images (B, H, W, 3) NHWC, im_info (B, 3) rows (h, w, scale).
+        Spans: ``infer.backbone``; ``infer.rpn`` (the FPN, the RPN head, the
+        anchors and the proposals); ``infer.roi_heads`` (each stage's
+        RoIAlign, head and decode)."""
         c = self.cfg
         b = images.shape[0]
-        pyramid = self.extract(images.to(self.compute_dtype))
-        rpn_cls, rpn_reg = self.rpn(pyramid)
+        with annotate("infer.backbone"):
+            feats = self.backbone(images.to(self.compute_dtype))
+        with annotate("infer.rpn"):
+            pyramid = self.fpn(feats)
+            rpn_cls, rpn_reg = self.rpn(pyramid)
+            pad_hw = (images.shape[1], images.shape[2])
+            anchors = rpn_level_anchors(c, pad_hw, device=images.device)
+            resized_hw = im_info[:, :2] * im_info[:, 2:3]
+            rois, _, roi_valid = generate_proposals(
+                rpn_cls, rpn_reg, anchors, resized_hw,
+                pre_nms_top_n=c.rpn.pre_nms_top_n_test,
+                post_nms_top_n=c.rpn.post_nms_top_n_test,
+                nms_thr=c.rpn.nms_thr, min_box_size=c.rpn.min_box_size,
+                bbox_stds=c.rpn.bbox_stds)
 
-        pad_hw = (images.shape[1], images.shape[2])
-        anchors = rpn_level_anchors(c, pad_hw, device=images.device)
-        resized_hw = im_info[:, :2] * im_info[:, 2:3]
-        rois, _, roi_valid = generate_proposals(
-            rpn_cls, rpn_reg, anchors, resized_hw,
-            pre_nms_top_n=c.rpn.pre_nms_top_n_test,
-            post_nms_top_n=c.rpn.post_nms_top_n_test,
-            nms_thr=c.rpn.nms_thr, min_box_size=c.rpn.min_box_size,
-            bbox_stds=c.rpn.bbox_stds)
-
-        stage_rois, probs_sum, deltas = rois, None, None
-        for i in range(self.num_stages):
-            roi_feats = batched_roi_align(pyramid, stage_rois, roi_valid, c, c.roi.output_size)
-            s = roi_feats.shape[1]
-            cls_logits, deltas = self.bbox_head(i)(
-                roi_feats.reshape(b * s, *roi_feats.shape[2:]))
-            deltas = deltas.reshape(b, s, -1)
-            p = torch.softmax(cls_logits.reshape(b, s, -1), dim=-1)
-            probs_sum = p if probs_sum is None else probs_sum + p
-            if i + 1 < self.num_stages:
-                stage_rois = decode_stage_boxes(stage_rois, deltas, self._stage_stds(i),
-                                                resized_hw)
+        with annotate("infer.roi_heads"):
+            stage_rois, probs_sum, deltas = rois, None, None
+            for i in range(self.num_stages):
+                roi_feats = batched_roi_align(pyramid, stage_rois, roi_valid, c, c.roi.output_size)
+                s = roi_feats.shape[1]
+                cls_logits, deltas = self.bbox_head(i)(
+                    roi_feats.reshape(b * s, *roi_feats.shape[2:]))
+                deltas = deltas.reshape(b, s, -1)
+                p = torch.softmax(cls_logits.reshape(b, s, -1), dim=-1)
+                probs_sum = p if probs_sum is None else probs_sum + p
+                if i + 1 < self.num_stages:
+                    stage_rois = decode_stage_boxes(stage_rois, deltas, self._stage_stds(i),
+                                                    resized_hw)
         return {
             "pyramid": pyramid,
             "rois": stage_rois, "roi_valid": roi_valid,

@@ -37,6 +37,7 @@ from ..models.detectors.rcnn import mask_probs
 from ..models.registry import build_detector, detector_fns, require_device
 from ..parallel.dist import on_rank0
 from ..parallel.mesh import initialize_from_env, local_device, world_size
+from ..utils.profiling import annotate
 
 
 def parse_overrides(pairs) -> dict:
@@ -159,22 +160,29 @@ def infer_batch(model, cfg: Config, raw, hw, dtype, masks: bool = True, *, flip=
     (``dets["masks"]``, (B, D, M, M)). By default no image is flipped and
     the images are resized to ``cfg.data.scale`` on the (pad_h, pad_w)
     canvas. Returns (dets, outputs); the outputs keep the batch's
-    ``im_info``."""
-    d = cfg.data
-    out_hw = (d.pad_h, d.pad_w) if out_hw is None else out_hw
-    b = raw.shape[0]
-    if flip is None:
-        flip = torch.zeros((b,), dtype=torch.bool, device=raw.device)
-    gt_boxes = torch.zeros((b, d.max_gt, 4), device=raw.device)  # no detection reads them
-    tb = batch_transform(raw, hw, flip, gt_boxes, out_hw=out_hw,
-                         scale_size=d.scale if scale_size is None else scale_size,
-                         max_size=d.max_size, mean=d.mean, std=d.std, dtype=dtype)
-    out = model.forward_test(tb["images"], tb["im_info"])
-    out["im_info"] = tb["im_info"]
-    dets = detector_fns(cfg).postprocess(out, cfg, out_hw, tb["im_info"])
-    if masks and getattr(model, "mask_head", None) is not None:
-        dets["masks"] = mask_probs(model, out, dets, tb["im_info"])
-    return dets, out
+    ``im_info``. Spans (``utils/profiling.py``): ``infer.batch`` (its item
+    id the recorder's count of root spans), with ``infer.transform``,
+    ``infer.forward``, ``infer.postprocess`` and ``infer.masks``."""
+    with annotate("infer.batch"):
+        d = cfg.data
+        out_hw = (d.pad_h, d.pad_w) if out_hw is None else out_hw
+        b = raw.shape[0]
+        with annotate("infer.transform"):
+            if flip is None:
+                flip = torch.zeros((b,), dtype=torch.bool, device=raw.device)
+            gt_boxes = torch.zeros((b, d.max_gt, 4), device=raw.device)  # no detection reads them
+            tb = batch_transform(raw, hw, flip, gt_boxes, out_hw=out_hw,
+                                 scale_size=d.scale if scale_size is None else scale_size,
+                                 max_size=d.max_size, mean=d.mean, std=d.std, dtype=dtype)
+        with annotate("infer.forward"):
+            out = model.forward_test(tb["images"], tb["im_info"])
+        out["im_info"] = tb["im_info"]
+        with annotate("infer.postprocess"):
+            dets = detector_fns(cfg).postprocess(out, cfg, out_hw, tb["im_info"])
+        if masks and getattr(model, "mask_head", None) is not None:
+            with annotate("infer.masks"):
+                dets["masks"] = mask_probs(model, out, dets, tb["im_info"])
+        return dets, out
 
 
 def bench_log(msg: str) -> None:

@@ -37,6 +37,7 @@ from ..data.transforms import batch_transform
 from ..models.registry import build_detector, detector_fns, require_device
 from ..ops.matching import Draws, TorchDraws
 from ..parallel.mesh import data_parallel_size, world_size
+from ..utils.profiling import annotate
 from .schedule import warmup_multistep
 
 
@@ -159,23 +160,35 @@ class Trainer:
         replica holds the same B. Returns the metrics
         averaged over the replicas as 0-d tensors on the device (no host
         sync on one replica): the loss terms, ``loss`` and ``grad_norm``,
-        the global norm of the averaged gradient before clipping."""
-        draws = self.draws if draws is None else draws
-        if self.replicas > 1:
-            self._check_equal_local_batches(len(batch["raw"]))
-        tb = self.device_batch(batch)
-        for p in self.params:
-            p.grad = None
-        outputs = self.model.forward_train(tb, draws)
-        loss, metrics = self.loss_fn(outputs, tb, draws, self.cfg)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        grads = [p.grad for p in self.params]
-        if self.replicas > 1:
-            grads, metrics = self._average(grads, metrics)
-        metrics["grad_norm"] = self.optimizer.step(grads)
-        return metrics
+        the global norm of the averaged gradient before clipping. Spans
+        (``utils/profiling.py``): ``train.step``, whose item id is the
+        optimizer's count before the step, with ``train.batch``
+        (``device_batch``), ``train.forward``, ``train.loss``,
+        ``train.backward``, ``train.allreduce`` (more than one replica) and
+        ``train.optimizer``."""
+        with annotate("train.step", self.optimizer.count):
+            draws = self.draws if draws is None else draws
+            if self.replicas > 1:
+                self._check_equal_local_batches(len(batch["raw"]))
+            with annotate("train.batch"):
+                tb = self.device_batch(batch)
+            for p in self.params:
+                p.grad = None
+            with annotate("train.forward"):
+                outputs = self.model.forward_train(tb, draws)
+            with annotate("train.loss"):
+                loss, metrics = self.loss_fn(outputs, tb, draws, self.cfg)
+            with annotate("train.backward"):
+                loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            grads = [p.grad for p in self.params]
+            if self.replicas > 1:
+                with annotate("train.allreduce"):
+                    grads, metrics = self._average(grads, metrics)
+            with annotate("train.optimizer"):
+                metrics["grad_norm"] = self.optimizer.step(grads)
+            return metrics
 
     def _check_equal_local_batches(self, b: int) -> None:
         """SyncBN's average and the gradients' are unweighted means over the

@@ -497,13 +497,26 @@ def test_load_backbone_matches_jax(tmp_path):
 
 
 def test_profiling_trace(tmp_path):
-    """``trace`` writes a Chrome trace of the region; ``annotate`` names a span in it."""
+    """``trace`` writes a Chrome trace of the region; ``annotate`` names a
+    span in it, and so does the port's own ``infer.batch``."""
     import gzip
 
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.registry import build_detector
+    from mxdetection_tpu_torch.tools.common import infer_batch
     from mxdetection_tpu_torch.utils.profiling import annotate, trace
 
-    with trace(str(tmp_path)):
+    cfg = load_config("faster_rcnn_r50_fpn_1x", {
+        "data.pad_h": 64, "data.pad_w": 64, "data.scale": 48, "data.max_size": 64,
+        "rpn.pre_nms_top_n_test": 64, "rpn.post_nms_top_n_test": 32,
+        "test.pre_nms_per_class": 64, "backbone.dtype": "float32"})
+    model = build_detector(cfg, device="cpu", seed=0)
+    raw = torch.zeros((1, 48, 60, 3), dtype=torch.uint8)
+    with trace(str(tmp_path)) as prof:
         with annotate("mxdet_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
+        infer_batch(model, cfg, raw, torch.tensor([[48.0, 60.0]]), torch.float32)
+    assert [r["name"] for r in prof.recorder.records()][:2] == ["mxdet_span", "infer.batch"]
     with gzip.open(tmp_path / "trace.json.gz", "rt") as fh:
-        assert "mxdet_span" in fh.read()
+        text = fh.read()
+    assert "mxdet_span" in text and '"infer.batch"' in text
