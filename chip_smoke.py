@@ -50,6 +50,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    roi list; after step 9, the same checks and a time on the rois of the
    training path's first step (with a seeded upstream gradient), and K1's
    check and time on those rois;
+5b. holds the FrozenBN epilogue (``csrc/norm_act.cu``: the affine, the
+   ReLU and the residual add in one pass over channels_last maps, and its
+   backward) bit for bit against the ATen op sequence it replaces
+   (``ops/norm_act.py::frozen_bn_act_plain``, autograd of it for the
+   gradients) at every (pattern, C, H, W) of R50 and R101 on the 832x1344
+   canvas: f32 forward and gradients at batch 2, the bf16 forward at batch
+   32, timed against the byte bound and the ATen sequence (``library_ms``),
+   and the bf16 forward and gradients at batch 8, the backward pass timed;
+   on NaN, +-inf, -0 and huge values, zero and -inf scales, C = 8, 24 and
+   2056; the wrapper must refuse C = 12, NCHW memory and float16; logs
+   ptxas's lines (failing on spills), the roofline share at each shape and
+   the sums over an R50 and an R101 batch; ``norm_act.fused`` must count 49
+   calls a Faster R-CNN R50 backbone forward and 100 a Cascade R-CNN R101
+   one on the card, with no FrozenBN module run outside the operator. After
+   the paths, each path's launches of the epilogue a batch (49 R50, 100
+   R101) and a step (backward 39 R50, 90 R101) are checked;
 6. drives the inference path at full width: Faster R-CNN R50-FPN COCO
    inference in bf16 (seeded random weights), ``batch_transform`` of 8
    uint8 480x640 canvases to 832x1344, ``forward_test`` and
@@ -1104,6 +1120,228 @@ def k3_synthetic(device, p: int, r: int, gen) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 5b: the FrozenBN epilogue (norm_act.cu)
+
+
+NORM_ACT_BATCH, NORM_ACT_BWD_BATCH = 32, 8
+NORM_ACT_CALLS = {50: 49, 101: 100}  # norm_act.fused an R50 / R101 forward
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaNs of one payload equal), layouts aside."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def norm_act_grads(fn, args, g):
+    """(output, dx, d residual) of ``fn(*args)`` by autograd from g."""
+    ins = [t.detach().clone().requires_grad_() if i in (0, 3) and t is not None else t
+           for i, t in enumerate(args)]
+    y = fn(*ins)
+    y.backward(g)
+    return y.detach(), ins[0].grad, None if ins[3] is None else ins[3].grad
+
+
+def norm_act_edges(device) -> None:
+    """Bit for bit on awkward inputs: NaN, +-inf, -0 and huge values in x and
+    the residual, scales of 0, -0 and -inf; C = 8, 24 and 2056 (a thread's
+    channels not a power of two apart); a pixel count no grid divides; f32
+    and bf16; the gradients too. And the wrapper raises on what the kernel
+    does not take."""
+    import torch
+
+    from mxdetection_tpu_torch.ops import library
+    from mxdetection_tpu_torch.ops.cuda.norm_act_variants import make_args
+    from mxdetection_tpu_torch.ops.norm_act import frozen_bn_act_plain
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    cases = [(dtype, c, h, w, pattern) for dtype in (torch.float32, torch.bfloat16)
+             for c, h, w in ((8, 3, 5), (24, 7, 9), (2056, 2, 3), (64, 37, 41))
+             for pattern in ("a", "b_identity", "b_downsample")]
+    for dtype, c, h, w, pattern in cases:
+        tag = f"norm_act edge {pattern} C={c} {h}x{w} {dtype}"
+        args = list(make_args(pattern, 3, c, h, w, dtype, gen, device))
+        special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 3e38,
+                                -3e38], device=device).to(dtype)
+        for i in (0, 3):
+            if args[i] is not None:
+                flat = args[i].permute(0, 2, 3, 1).reshape(-1)
+                idx = torch.randint(0, flat.numel(), (64,), generator=gen, device=device)
+                flat[idx] = special[torch.arange(64, device=device) % 7]
+        args[1][:3] = torch.tensor([0.0, -0.0, -float("inf")], device=device).to(dtype)
+        got, ref = library.frozen_bn_act(*args), frozen_bn_act_plain(*args)
+        if not same_bits(got, ref):
+            bad = (got.float() != ref.float()) & ~(got.isnan() & ref.isnan())
+            fail(f"{tag}: {int(bad.sum())} values differ from the ATen sequence")
+        g = torch.randn(got.shape, generator=gen, device=device).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        g.permute(0, 2, 3, 1).reshape(-1)[:5] = special[:5]
+        for a, b in zip(norm_act_grads(library.frozen_bn_act, args, g)[1:],
+                        norm_act_grads(frozen_bn_act_plain, args, g)[1:]):
+            if (a is None) != (b is None) or (a is not None and not same_bits(a, b)):
+                fail(f"{tag}: a gradient differs from autograd of the ATen sequence")
+    x = torch.zeros((2, 12, 4, 4), device=device).contiguous(memory_format=torch.channels_last)
+    ones = torch.ones(12, device=device)
+    refused = 0
+    for what, args in (("C = 12", (x, ones, ones)),
+                       ("NCHW memory", (torch.zeros((2, 16, 4, 4), device=device),
+                                        ones.new_ones(16), ones.new_ones(16))),
+                       ("float16", (x[:, :8].half().contiguous(
+                           memory_format=torch.channels_last), ones[:8].half(),
+                           ones[:8].half()))):
+        try:
+            library.frozen_bn_act(*args, None, None, None)
+        except (ValueError, TypeError, RuntimeError):
+            refused += 1
+        else:
+            fail(f"norm_act: the wrapper took {what}")
+    log(f"norm_act edges: {len(cases)} cases bit for bit against the ATen sequence (NaN, inf, "
+        f"-0, 3e38, zero and -inf scales; C = 8, 24, 2056, 64; f32 and bf16), gradients too; "
+        f"{refused} unsupported inputs refused")
+
+
+def norm_act_counts(device, card: str) -> dict:
+    """``norm_act.fused`` a backbone forward of Faster R-CNN R50 and Cascade
+    R-CNN R101-DCN on the card (bf16, seeded weights, 256x320), and the
+    FrozenBN modules run outside the operator (forward hooks: none)."""
+    import torch
+
+    from mxdetection_tpu_torch.config import load_config
+    from mxdetection_tpu_torch.models.layers import FrozenBatchNorm
+    from mxdetection_tpu_torch.tools.common import seeded_model
+    from mxdetection_tpu_torch.utils.profiling import Recorder, annotate
+
+    out = {}
+    for name, depth in (("faster_rcnn_r50_fpn_1x", 50), (CASCADE, 101)):
+        model = seeded_model(load_config(name), device)
+        outside = []
+        hooks = [m.register_forward_hook(lambda *_: outside.append(1))
+                 for m in model.modules() if isinstance(m, FrozenBatchNorm)]
+        images = torch.randn((2, 256, 320, 3), device=device).to(model.compute_dtype)
+        with torch.no_grad(), Recorder(device) as rec, annotate("infer.backbone"):
+            model.backbone(images)
+        for hk in hooks:
+            hk.remove()
+        n = rec.items()[0]["infer.backbone"]["counters"].get("norm_act.fused", 0)
+        log(f"norm_act: {name} backbone forward on the card: norm_act.fused {n} (expected "
+            f"{NORM_ACT_CALLS[depth]}), {len(hooks)} FrozenBN modules, {len(outside)} run "
+            f"outside the operator ({card})")
+        if n != NORM_ACT_CALLS[depth] or outside:
+            fail(f"norm_act: {name} counted {n} fused calls and {len(outside)} FrozenBN "
+                 "modules outside the operator")
+        out[name] = n
+        del model
+    return out
+
+
+def phase_norm_act(device, card: str) -> dict:
+    """Phase 5b (see the module's docstring). Returns the kernel's record:
+    the bf16 forward's ms summed over an R50 batch of 32 (each shape times
+    its calls), its bound and the ATen sequence's ms, and per shape."""
+    import gc
+
+    import torch
+
+    from mxdetection_tpu_torch.ops import library
+    from mxdetection_tpu_torch.ops.cuda.norm_act_variants import (SHAPES, bytes_moved,
+                                                                  kernel_bwd, kernel_fwd,
+                                                                  make_args)
+    from mxdetection_tpu_torch.ops.norm_act import (frozen_bn_act_backward_plain,
+                                                    frozen_bn_act_plain)
+
+    t_phase = time.perf_counter()
+    assert sum(s[4] for s in SHAPES) == NORM_ACT_CALLS[50]
+    assert sum(s[5] for s in SHAPES) == NORM_ACT_CALLS[101]
+    ptxas_facts("norm_act_fwd_kernel", "norm_act")
+    ptxas_facts("norm_act_bwd_kernel", "norm_act bwd")
+    norm_act_edges(device)
+    counts = norm_act_counts(device, card)
+    gen = torch.Generator(device=device).manual_seed(20)
+    bf16 = torch.bfloat16
+    keys = ("ms", "op_ms", "bound_ms", "library_ms", "bwd_ms", "bwd_bound_ms", "bwd_library_ms")
+    r50, r101 = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    by_shape, shares = [], {}
+    for pattern, c, h, w, n50, n101 in SHAPES:
+        tag = f"{pattern} C={c} {h}x{w}"
+
+        def same(fn_a, fn_b, args, g, what):
+            for a, b in zip(norm_act_grads(fn_a, args, g), norm_act_grads(fn_b, args, g)):
+                if (a is None) != (b is None) or (a is not None and not same_bits(a, b)):
+                    fail(f"norm_act {tag} {what}: the output or a gradient differs from "
+                         "autograd of the ATen sequence")
+
+        # f32 at batch 2: the forward and the gradients bit for bit
+        args = make_args(pattern, 2, c, h, w, torch.float32, gen, device)
+        g = torch.randn((2, h, w, c), generator=gen, device=device).permute(0, 3, 1, 2)
+        same(library.frozen_bn_act, frozen_bn_act_plain, args, g, "f32")
+        # bf16 at batch 32: the forward bit for bit; the kernel alone (through
+        # its C entry point), the operator and the ATen sequence timed
+        args = make_args(pattern, NORM_ACT_BATCH, c, h, w, bf16, gen, device)
+        got, ref = library.frozen_bn_act(*args), frozen_bn_act_plain(*args)
+        if not same_bits(got, ref):
+            fail(f"norm_act {tag} bf16 batch {NORM_ACT_BATCH}: "
+                 f"{int((got != ref).sum())} values differ from the ATen sequence")
+        rec = {"shape": [pattern, c, h, w], "calls_r50": n50, "calls_r101": n101,
+               "ms": time_ms(kernel_fwd(args, got), reps=20),
+               "op_ms": time_ms(lambda: library.frozen_bn_act(*args), reps=20),
+               "library_ms": time_ms(lambda: frozen_bn_act_plain(*args), reps=10),
+               "bound_ms": bound(bytes_moved(pattern, args[0].numel(), 2), 0.0)[0]}
+        del args, got, ref
+        # bf16 at batch 8: the forward and the gradients bit for bit; the
+        # backward kernel alone and the ATen backward sequence timed
+        args = make_args(pattern, NORM_ACT_BWD_BATCH, c, h, w, bf16, gen, device)
+        g = torch.randn((NORM_ACT_BWD_BATCH, h, w, c), generator=gen, device=device).to(
+            bf16).permute(0, 3, 1, 2)
+        same(library.frozen_bn_act, frozen_bn_act_plain, args, g, f"bf16 batch {len(g)}")
+        mode = 0 if args[3] is None else 1 if args[4] is None else 2
+        y = frozen_bn_act_plain(*args)
+        dx, dr = torch.empty_like(g), torch.empty_like(g)
+        rec["bwd_ms"] = time_ms(kernel_bwd(args, g, y, dx, dr), reps=20)
+        rec["bwd_library_ms"] = time_ms(lambda: frozen_bn_act_backward_plain(
+            g, y, args[1], args[4], mode), reps=10)
+        rec["bwd_bound_ms"] = bound(bytes_moved(pattern, g.numel(), 2, backward=True), 0.0)[0]
+        del args, g, y, dx, dr
+        rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
+        rec["bwd_roofline_pct"] = 100 * rec["bwd_bound_ms"] / rec["bwd_ms"]
+        by_shape.append(rec)
+        for k in keys:
+            r50[k] += rec[k] * n50
+            r101[k] += rec[k] * n101
+        if h in (208, 104):  # the layer1 and layer2 shapes
+            shares[tag] = rec["roofline_pct"]
+        log(f"norm_act {tag}: bf16 batch {NORM_ACT_BATCH}: kernel {rec['ms']:.4f} ms (bound "
+            f"{rec['bound_ms']:.4f}, {rec['roofline_pct']:.1f} % of the byte roofline), "
+            f"through the operator {rec['op_ms']:.4f}, ATen sequence {rec['library_ms']:.4f}; "
+            f"backward batch {NORM_ACT_BWD_BATCH}: kernel {rec['bwd_ms']:.4f} (bound "
+            f"{rec['bwd_bound_ms']:.4f}, {rec['bwd_roofline_pct']:.1f} %), ATen "
+            f"{rec['bwd_library_ms']:.4f}; bit for bit ({card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, tot, n in (("R50", r50, 49), ("R101", r101, 100)):
+        log(f"norm_act: an {name} forward's {n} calls at batch {NORM_ACT_BATCH} on 832x1344: "
+            f"kernel {tot['ms']:.3f} ms (bound {tot['bound_ms']:.3f}, "
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f} %), through the operator "
+            f"{tot['op_ms']:.3f}, ATen sequence {tot['library_ms']:.3f}; their backwards at "
+            f"batch {NORM_ACT_BWD_BATCH}: kernel {tot['bwd_ms']:.3f} (bound "
+            f"{tot['bwd_bound_ms']:.3f}), ATen {tot['bwd_library_ms']:.3f} ({card})")
+    log("norm_act: layer1 and layer2 shapes' roofline shares "
+        + ", ".join(f"{k} {v:.1f} %" for k, v in shares.items()))
+    low = sorted(k for k, v in shares.items() if v < 75.0)
+    if low:
+        log(f"norm_act: under 75 % of the byte roofline at {low}")
+    log(f"phase 5b (FrozenBN epilogue) took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": r50["ms"], "plain_ms": r50["library_ms"], "bound_ms": r50["bound_ms"],
+            "bound_by": "bytes", "library_ms": r50["library_ms"], "max_abs_err": 0.0,
+            "op_ms": r50["op_ms"], "r101": r101, "bwd_ms_b8": r50["bwd_ms"],
+            "bwd_bound_ms_b8": r50["bwd_bound_ms"], "bwd_library_ms_b8": r50["bwd_library_ms"],
+            "fused_calls": counts, "by_shape": by_shape}
+
+
 class CaptureRoi:
     """While active, keeps a copy of the rois, levels and validity of the
     first call of the RoIAlign backward's wrapper (``backward``) or of the
@@ -2124,6 +2362,23 @@ def drive_train(trainer, batch, counters, card: str, what: str, profile_dir: str
     return launches, q[1], peak
 
 
+def check_norm_act_launches(paths: dict) -> None:
+    """The FrozenBN epilogue's launches a batch or a step of each path: its
+    forward once a fused call (49 an R50 forward, 100 an R101 one), its
+    backward once for each call of the trained stages 2-4 (39 R50, 90 R101);
+    none in the SyncBN path."""
+    expected = {  # path: (batches or steps counted, forward, backward a batch or step)
+        "inference": (TIMED_BATCHES + 1, 49, 0), "cascade_inference": (TIMED_BATCHES + 1, 100, 0),
+        "mask_inference": (TIMED_BATCHES + 1, 49, 0), "train": (TRAIN_STEPS, 49, 39),
+        "cascade_train": (TRAIN_STEPS, 100, 90), "mask_train": (TRAIN_STEPS, 49, 39),
+        "sync_bn_train": (TRAIN_STEPS, 0, 0)}
+    for path, (items, fwd, bwd) in expected.items():
+        got = (paths[path].get("norm_act", 0) / items, paths[path].get("norm_act_bwd", 0) / items)
+        log(f"norm_act launches a batch or step, {path}: {got[0]:g} forward, {got[1]:g} backward")
+        if got != (fwd, bwd):
+            fail(f"{path}: norm_act launches {got}, expected ({fwd}, {bwd})")
+
+
 def phase_train_path(device, card: str, counters, profile_dir: str | None,
                      capture: CaptureRoi, nms_capture: CaptureNms) -> tuple:
     import torch
@@ -2557,7 +2812,8 @@ def check_remat(device, cfg, state, batch, replay, plain: tuple) -> None:
     relative, and the same running statistics (within 1e-6 of their
     largest value): the recompute must not move them a second time. The
     recompute runs every deformable conv's forward again, so the step
-    launches K5 and K5b twice as often as without remat."""
+    launches K5 and K5b twice as often as without remat, and the FrozenBN
+    epilogue once more for each of its backwards."""
     what = f"small f32 {cfg.name} step with remat"
     res, stats, launches, _ = small_train_step(cfg.override(**{"backbone.remat": True}), state,
                                                batch, replay.on(device), device, what)
@@ -2574,8 +2830,11 @@ def check_remat(device, cfg, state, batch, replay, plain: tuple) -> None:
         fail(f"{what}: remat changed the step")
     want = {k: 2 * n if k in ("deform_conv", "deform_conv_s2") else n
             for k, n in ref_launches.items()}
+    if "norm_act_bwd" in ref_launches:  # each fused call with a backward runs again
+        want["norm_act"] += ref_launches["norm_act_bwd"]
     if launches != want:
-        fail(f"{what}: launches {launches}, expected {want} (K5 and K5b twice)")
+        fail(f"{what}: launches {launches}, expected {want} (K5 and K5b twice, the FrozenBN "
+             "epilogue again for each of its backwards)")
 
 
 def remat_peak(trainer, batch, peak: float, what: str, card: str) -> None:
@@ -3169,9 +3428,13 @@ def bench_kernels(name: str, train: bool) -> set:
     infer = {"nms"} if name in ("retinanet_r50_fpn_1x", "rfcn_r50_1x") else {"roi_align", "nms"}
     if name == CASCADE:
         infer |= {"deform_conv", "deform_conv_s2"}
+    if name != SYNC:  # every FrozenBN config
+        infer |= {"norm_act"}
     if not train:
         return infer
     step = {"iou", "iou_pass_a", "iou_pass_b"}
+    if name != SYNC:
+        step |= {"norm_act", "norm_act_bwd"}
     if name == "retinanet_r50_fpn_1x":
         return step
     step |= infer
@@ -3517,12 +3780,13 @@ def phase_dp_world(card: str, sync_per_step: dict) -> dict:
 
 
 SERVING = (  # (label, config, batch, launches a batch of the served program)
-    ("faster", "faster_rcnn_r50_fpn_1x", MAIN_BATCH, {"roi_align": 1.0, "nms": 2.0}),
+    ("faster", "faster_rcnn_r50_fpn_1x", MAIN_BATCH, {"roi_align": 1.0, "nms": 2.0,
+                                                      "norm_act": 49.0}),
     ("cascade", CASCADE, MAIN_BATCH, {"roi_align": 3.0, "nms": 2.0, "deform_conv": 27.0,
-                                      "deform_conv_s2": 3.0}),
-    ("mask", MASK, 1, {"roi_align": 1.0, "nms": 2.0}),
-    ("retinanet", "retinanet_r50_fpn_1x", 1, {"nms": 1.0}),
-    ("rfcn", "rfcn_r50_1x", 1, {"nms": 2.0}))
+                                      "deform_conv_s2": 3.0, "norm_act": 100.0}),
+    ("mask", MASK, 1, {"roi_align": 1.0, "nms": 2.0, "norm_act": 49.0}),
+    ("retinanet", "retinanet_r50_fpn_1x", 1, {"nms": 1.0, "norm_act": 49.0}),
+    ("rfcn", "rfcn_r50_1x", 1, {"nms": 2.0, "norm_act": 49.0}))
 SERVING_OUT = ("boxes", "scores", "labels", "valid")
 EXPORT_LINE = re.compile(r"exported (\d+) bytes to \S+ in ([0-9.]+) s")
 
@@ -3608,6 +3872,7 @@ def dispatch_cost(device, card: str, calls: int = 2000) -> None:
     from mxdetection_tpu_torch.ops import library
     from mxdetection_tpu_torch.ops.cuda.deform_conv import deform_conv2d_cuda
     from mxdetection_tpu_torch.ops.cuda.nms import nms_mask_sorted_cuda
+    from mxdetection_tpu_torch.ops.cuda.norm_act import frozen_bn_act_cuda
     from mxdetection_tpu_torch.ops.cuda.roi_align import roi_align_cuda
 
     gen = torch.Generator().manual_seed(21)
@@ -3619,6 +3884,8 @@ def dispatch_cost(device, card: str, calls: int = 2000) -> None:
     x = torch.randn(1, 8, 8, 64, generator=gen).to(device)
     off = torch.zeros(1, 8, 8, 18, device=device)
     w = torch.randn(3, 3, 64, 64, generator=gen).to(device)
+    xc = x.permute(0, 3, 1, 2)  # channels_last
+    ones = torch.ones(64, device=device)
     pairs = {
         "nms_mask_sorted": (lambda: library.nms_mask_sorted(boxes, valid, 0.5),
                             lambda: nms_mask_sorted_cuda(boxes, valid, 0.5)),
@@ -3626,7 +3893,9 @@ def dispatch_cost(device, card: str, calls: int = 2000) -> None:
                       lambda: roi_align_cuda(feats, rois, [4], levels, output_size=7,
                                              sampling_ratio=2, roi_valid=valid[:, :8])),
         "deform_conv2d": (lambda: library.deform_conv(x, off, w, 1, 1, None),
-                          lambda: deform_conv2d_cuda(x, off, w))}
+                          lambda: deform_conv2d_cuda(x, off, w)),
+        "frozen_bn_act": (lambda: library.frozen_bn_act(xc, ones, ones, xc, None, None),
+                          lambda: frozen_bn_act_cuda(xc, ones, ones, xc))}
 
     def us(fn) -> float:
         torch.cuda.synchronize()
@@ -3794,27 +4063,32 @@ def main() -> int:
     k2 = phase_nms(device)
     k4 = phase_iou(device)
     k3 = phase_roi_align_bwd(device)
+    norm_act = phase_norm_act(device, card)
 
     from mxdetection_tpu_torch.ops.cuda import deform_conv as dcn_cuda
     from mxdetection_tpu_torch.ops.cuda import iou as iou_cuda
     from mxdetection_tpu_torch.ops.cuda import nms as nms_cuda
+    from mxdetection_tpu_torch.ops.cuda import norm_act as na_cuda
     from mxdetection_tpu_torch.ops.cuda import roi_align as roi_cuda
+
+    na = [na_cuda.launch_count]  # the FrozenBN epilogue, forward (and backward)
+    na_train = [na_cuda.launch_count, na_cuda.bwd_launch_count]
 
     # The Faster R-CNN path runs right after the kernel checks it ran after
     # before the cascade's phases existed, so its times stay comparable.
     nms_inference, nms_train = CaptureNms(2), CaptureNms(1)
     paths = {"inference": phase_main_path(device, card, [roi_cuda.launch_count,
-                                                         nms_cuda.launch_count], args.profile,
-                                          nms_inference)}
+                                                         nms_cuda.launch_count, *na],
+                                          args.profile, nms_inference)}
     k5 = phase_deform_conv(device)
     paths["cascade_inference"] = phase_cascade_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, dcn_cuda.launch_count,
-        dcn_cuda.s2_launch_count], args.profile)
+        dcn_cuda.s2_launch_count, *na], args.profile)
     capture = CaptureRoi()
     paths["train"], faster_ms, faster_peak = phase_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
-        iou_cuda.pass_b_count], args.profile, capture, nms_train)
+        iou_cuda.pass_b_count, *na_train], args.profile, capture, nms_train)
     phase_roi_align_bwd_train(device, capture.first, k3, k1)
     nms_sets = dict(zip(("faster_rpn", "faster_class_aware", "train_rpn"),
                         nms_inference.calls + nms_train.calls))
@@ -3837,30 +4111,34 @@ def main() -> int:
         iou_cuda.pass_b_count, dcn_cuda.launch_count,
         dcn_cuda.s2_launch_count, dcn_cuda.wgrad_launch_count,
         dcn_cuda.wgrad_s2_launch_count, dcn_cuda.col2im_launch_count,
-        dcn_cuda.col2im_s2_launch_count], args.profile)
+        dcn_cuda.col2im_s2_launch_count, *na_train], args.profile)
     paths["sync_bn_train"] = phase_sync_bn_train_path(device, card, [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
         iou_cuda.pass_b_count], args.profile, (faster_ms, faster_peak))
     mask_paths, k1["p14"], k3["p14"] = phase_mask_path(device, card, [
-        roi_cuda.launch_count, nms_cuda.launch_count], [
+        roi_cuda.launch_count, nms_cuda.launch_count, *na], [
         roi_cuda.launch_count, nms_cuda.launch_count, roi_cuda.bwd_launch_count,
         roi_cuda.bwd_bf16_launch_count, iou_cuda.launch_count, iou_cuda.pass_a_count,
-        iou_cuda.pass_b_count], args.profile)
+        iou_cuda.pass_b_count, *na_train], args.profile)
     paths.update(mask_paths)
     k4_counters = [iou_cuda.launch_count, iou_cuda.pass_a_count, iou_cuda.pass_b_count]
+    r50 = {"norm_act": 49.0}  # the stem and three a block
+    r50_train = {**r50, "norm_act_bwd": 39.0}  # stages 2-4 train: 13 blocks
     paths.update(phase_zoo_path(
-        device, card, "retinanet_r50_fpn_1x", "retinanet", [nms_cuda.launch_count], k4_counters,
-        {"nms": 1.0}, {"iou": 2.0, "iou_pass_a": 1.0, "iou_pass_b": 1.0}, exact_topk=True))
+        device, card, "retinanet_r50_fpn_1x", "retinanet", [nms_cuda.launch_count, *na],
+        [*k4_counters, *na_train], {"nms": 1.0, **r50},
+        {"iou": 2.0, "iou_pass_a": 1.0, "iou_pass_b": 1.0, **r50_train}, exact_topk=True))
     rfcn_nms = CaptureNms(1)
     paths.update(phase_zoo_path(
-        device, card, "rfcn_r50_1x", "rfcn", [nms_cuda.launch_count],
-        [nms_cuda.launch_count, *k4_counters], {"nms": 2.0},
-        {"nms": 1.0, "iou": 3.0, "iou_pass_a": 2.0, "iou_pass_b": 1.0},
+        device, card, "rfcn_r50_1x", "rfcn", [nms_cuda.launch_count, *na],
+        [nms_cuda.launch_count, *k4_counters, *na_train], {"nms": 2.0, **r50},
+        {"nms": 1.0, "iou": 3.0, "iou_pass_a": 2.0, "iou_pass_b": 1.0, **r50_train},
         # OHEM selective at the small step's 32 rois, as in its train fixture
         train_overrides={"bbox_head.ohem_keep": 16}, nms_capture=rfcn_nms))
     boxes, valid, thr = rfcn_nms.calls[0]
     k2["rfcn_rpn"]["main_path"] = k2_case("rfcn_rpn first batch", thr, boxes, valid)
+    check_norm_act_launches(paths)
     t0 = time.perf_counter()
     eval_paths, soft_nms = phase_eval_path(device, card, [roi_cuda.launch_count,
                                                           nms_cuda.launch_count])
@@ -3950,7 +4228,13 @@ def main() -> int:
               ("deform_wgrad_doffsets", K6_REPLACES, ("k6", 1)),
               ("deform_wgrad_doffsets_s2", K6B_REPLACES, ("k6", 2)),
               ("deform_col2im", K7_REPLACES, ("k7", 1)),
-              ("deform_col2im_s2", K7B_REPLACES, ("k7", 2)))]
+              ("deform_col2im_s2", K7B_REPLACES, ("k7", 2)))] + [
+        # no TPU kernel: XLA fuses the affine there. Times are bf16 at batch 32,
+        # summed over an R50 forward's 49 calls; library_ms the ATen sequence
+        {**entry("frozen_bn_act", "norm_act.cu", None, "norm_act", norm_act),
+         "launches_bwd": sum(n.get("norm_act_bwd", 0) for n in paths.values()),
+         **{k: v for k, v in norm_act.items() if k not in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}}]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

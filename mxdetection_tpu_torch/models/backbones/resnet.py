@@ -19,12 +19,17 @@ itself is detached). The frozen weights stay parameters and get no
 gradient; the trainer still decays them, as optax does in the reference.
 
 Norms (``norm_kind``, ``layers.make_norm``) sit at the stem and at every
-block's ``bn1``-``bn3`` and ``downsample_bn``. The JAX module's ``train``
-flag, which switches SyncBN to batch statistics, is the module's train/eval
-mode here. ``remat`` recomputes each bottleneck in the backward
-(``torch.utils.checkpoint``, as ``nn.remat(Bottleneck)``) in train mode; the
-recompute leaves SyncBN's running statistics alone, so they move once a
-step, as flax's ``batch_stats`` come from the forward pass alone.
+block's ``bn1``-``bn3`` and ``downsample_bn``. FrozenBN runs with the ReLU
+and the residual add after it as one operator call
+(``FrozenBatchNorm.act``, ``mxdet::frozen_bn_act``): the stem's, and three a
+block (bn1 and bn2 with their ReLU; bn3 with the residual, the downsample
+BN and the last ReLU); SyncBN and GroupNorm keep the modules' op sequence.
+The JAX module's ``train`` flag, which switches SyncBN to batch statistics,
+is the module's train/eval mode here. ``remat`` recomputes each bottleneck
+in the backward (``torch.utils.checkpoint``, as ``nn.remat(Bottleneck)``) in
+train mode; the recompute leaves SyncBN's running statistics alone, so they
+move once a step, as flax's ``batch_stats`` come from the forward pass
+alone.
 """
 
 from __future__ import annotations
@@ -103,6 +108,12 @@ class Bottleneck(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.bn1, FrozenBatchNorm):  # the norm, the ReLU and the add fused
+            out = self.bn1.act(self.conv1(x))
+            out = self.bn2.act(self.conv2(out))
+            if self.downsample_conv is None:
+                return self.bn3.act(self.conv3(out), x)
+            return self.bn3.act(self.conv3(out), self.downsample_conv(x), self.downsample_bn)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -187,7 +198,9 @@ class ResNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> tuple:
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory == channels_last
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = self.stem_conv(x)
+        x = (self.stem_bn.act(x) if isinstance(self.stem_bn, FrozenBatchNorm)
+             else F.relu(self.stem_bn(x)))
         if self.frozen_stages >= 0:
             x = x.detach()
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf, as flax does

@@ -26,6 +26,7 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.norm_act import frozen_bn_act
 from ..parallel.mesh import world_size
 
 # flax's truncated-normal initialisers divide the std by the std of a
@@ -48,11 +49,26 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: (B, C, H, W)
+    def affine(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, bias), each (C,), computed in f32 and cast to ``dtype``."""
         scale = self.gamma.float() * torch.rsqrt(self.var.float() + self.epsilon)
         bias = self.beta.float() - self.mean.float() * scale
+        return scale.to(dtype), bias.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: (B, C, H, W)
+        scale, bias = self.affine(x.dtype)
         shape = (1, -1, 1, 1)
-        return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+        return x * scale.view(shape) + bias.view(shape)
+
+    def act(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+            residual_bn: FrozenBatchNorm | None = None) -> torch.Tensor:
+        """``relu(self(x) [+ residual or residual_bn(residual)])`` in one call
+        of the operator ``mxdet::frozen_bn_act`` (``ops/norm_act.py``): one
+        pass of a kernel on the card, the same bits as the modules' op
+        sequence."""
+        scale, bias = self.affine(x.dtype)
+        res_scale, res_bias = (None, None) if residual_bn is None else residual_bn.affine(x.dtype)
+        return frozen_bn_act(x, scale, bias, residual, res_scale, res_bias)
 
 
 class SyncBatchNorm(nn.Module):

@@ -9,14 +9,16 @@ from __future__ import annotations
 
 
 def launch_counters() -> list:
-    """Every kernel wrapper's launch count, K1 to K7b."""
-    from . import deform_conv, iou, nms, roi_align
+    """Every kernel wrapper's launch count, K1 to K7b and the FrozenBN
+    epilogue's two."""
+    from . import deform_conv, iou, nms, norm_act, roi_align
 
     return [roi_align.launch_count, nms.launch_count, roi_align.bwd_launch_count,
             roi_align.bwd_bf16_launch_count, iou.launch_count, iou.pass_a_count,
             iou.pass_b_count, deform_conv.launch_count, deform_conv.s2_launch_count,
             deform_conv.wgrad_launch_count, deform_conv.wgrad_s2_launch_count,
-            deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count]
+            deform_conv.col2im_launch_count, deform_conv.col2im_s2_launch_count,
+            norm_act.launch_count, norm_act.bwd_launch_count]
 
 
 def reset_launches() -> None:

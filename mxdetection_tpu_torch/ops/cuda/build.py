@@ -144,11 +144,14 @@ def load_library() -> ctypes.CDLL:
     lib.mxdet_deform_wgrad_layout.argtypes = [i, i, i, i, i, p]
     lib.mxdet_deform_col2im.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     lib.mxdet_deform_col2im_layout.argtypes = [i, i, p]
+    lib.mxdet_norm_act_fwd.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p]
+    lib.mxdet_norm_act_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
     for fn in (lib.mxdet_roi_align_fwd, lib.mxdet_roi_align_bwd, lib.mxdet_roi_align_bwd_layout,
                lib.mxdet_nms_mask_sorted, lib.mxdet_max_iou, lib.mxdet_deform_conv_fwd,
                lib.mxdet_deform_conv_fwd_smem, lib.mxdet_deform_conv_weight_tiles,
                lib.mxdet_deform_wgrad_doffsets, lib.mxdet_deform_wgrad_layout,
-               lib.mxdet_deform_col2im, lib.mxdet_deform_col2im_layout):
+               lib.mxdet_deform_col2im, lib.mxdet_deform_col2im_layout, lib.mxdet_norm_act_fwd,
+               lib.mxdet_norm_act_bwd):
         fn.restype = i
     return lib
 

@@ -10,7 +10,10 @@ implementations and a shape function:
   ``ops/nms.py::nms_mask_sorted_plain`` on the CPU;
 - ``mxdet::deform_conv2d``: the deformable conv, K5 at stride 1 and K5b at
   stride 2 (``ops/cuda/deform_conv.py``) on the card,
-  ``ops/dcn.py::deform_conv2d`` on the CPU.
+  ``ops/dcn.py::deform_conv2d`` on the CPU;
+- ``mxdet::frozen_bn_act``: FrozenBN's affine with its ReLU and residual
+  add, ``csrc/norm_act.cu`` (``ops/cuda/norm_act.py``) on the card,
+  ``ops/norm_act.py::frozen_bn_act_plain`` on the CPU.
 
 The CUDA implementation launches the kernel (its wrapper counts the
 launch) and the CPU one runs the plain version: which one runs is the
@@ -20,11 +23,12 @@ program down to the operator without running it, so an exported program
 holds one node for each call, and a process that loads it needs this
 module and nothing of the models (``tools/export.py``).
 
-RoIAlign and the deformable conv carry their gradients
-(``register_autograd``): on the card K3 (with K3b, the bf16 convert, as its
-epilogue) for RoIAlign and K6/K6b and K7/K7b for the deformable conv; on the
-CPU autograd of RoIAlign's plain version, recomputed in the backward
-(``torch.func.vjp``), and the deformable conv's plain backward. The
+RoIAlign, the deformable conv and the FrozenBN epilogue carry their
+gradients (``register_autograd``): on the card K3 (with K3b, the bf16
+convert, as its epilogue) for RoIAlign, K6/K6b and K7/K7b for the deformable
+conv and ``norm_act.cu``'s backward pass for the epilogue; on the CPU
+autograd of RoIAlign's plain version, recomputed in the backward
+(``torch.func.vjp``), and the other two's plain backwards. The
 gradient reaches RoIAlign's features only: the rois, their levels and
 ``roi_valid`` get none, as in the JAX package's ``make_trainable_roi_align``.
 The training-only kernels (K3, K4, K6, K7) are not operators of their own.
@@ -42,6 +46,7 @@ import torch
 
 from .dcn import deform_conv2d, deform_conv2d_backward
 from .nms import nms_mask_sorted_plain
+from .norm_act import frozen_bn_act_backward_plain, frozen_bn_act_plain
 from .roi_align import multilevel_roi_align_plain
 
 _LIB = torch.library.Library("mxdet", "DEF")
@@ -178,3 +183,48 @@ def _deform_conv_backward(ctx, g):
 
 torch.library.register_autograd("mxdet::deform_conv2d", _deform_conv_backward,
                                 setup_context=_deform_conv_setup, lib=_LIB)
+
+
+# ---------------------------------------------------------------- FrozenBN epilogue
+
+
+def _frozen_bn_act_cuda(x, scale, bias, residual, res_scale, res_bias):
+    from .cuda.norm_act import frozen_bn_act_cuda
+
+    return frozen_bn_act_cuda(x, scale, bias, residual, res_scale, res_bias)
+
+
+def _frozen_bn_act_fake(x, scale, bias, residual, res_scale, res_bias):
+    return torch.empty_like(x)  # x's shape, dtype and (channels_last) strides
+
+
+# x (B, C, H, W), scale and bias (C,) in x's dtype; residual like x or None,
+# through (residual_scale, residual_bias) when given -> relu(x * scale +
+# bias [+ residual]) like x
+frozen_bn_act = _define(
+    "frozen_bn_act(Tensor x, Tensor scale, Tensor bias, Tensor? residual, "
+    "Tensor? residual_scale, Tensor? residual_bias) -> Tensor",
+    frozen_bn_act_plain, _frozen_bn_act_cuda, _frozen_bn_act_fake)
+
+
+def _frozen_bn_act_setup(ctx, inputs, output):
+    x, scale, bias, residual, res_scale, res_bias = inputs
+    ctx.mode = 0 if residual is None else 1 if res_scale is None else 2
+    ctx.save_for_backward(output, scale, res_scale)
+
+
+def _frozen_bn_act_backward(ctx, g):
+    y, scale, res_scale = ctx.saved_tensors
+    if g.device.type == "cuda":
+        from .cuda.norm_act import frozen_bn_act_bwd_cuda
+
+        # the same values in the kernel's layout (a no-op for a conv's gradient)
+        g = g.contiguous(memory_format=torch.channels_last)
+        dx, dres = frozen_bn_act_bwd_cuda(g, y, scale, res_scale, ctx.mode)
+    else:
+        dx, dres = frozen_bn_act_backward_plain(g, y, scale, res_scale, ctx.mode)
+    return dx, None, None, dres, None, None
+
+
+torch.library.register_autograd("mxdet::frozen_bn_act", _frozen_bn_act_backward,
+                                setup_context=_frozen_bn_act_setup, lib=_LIB)

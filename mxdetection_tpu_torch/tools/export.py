@@ -12,7 +12,8 @@ weights, at static shapes, for one device (``--device``, the card unless
 the caller asks for the CPU), as a ``jax.export`` module is for one
 platform. The kernels are the registered operators of ``ops/library.py``
 (``mxdet::roi_align``, ``mxdet::nms_mask_sorted``,
-``mxdet::deform_conv2d``): the artifact calls them by name, and
+``mxdet::deform_conv2d``, ``mxdet::frozen_bn_act``): the artifact calls
+them by name, and
 ``load_serving`` needs that module and nothing of the models:
 
     from mxdetection_tpu_torch.tools.export import load_serving

@@ -11,7 +11,8 @@
   what the JAX tool's ``build_serving_fn`` serves on the same params
   (boxes 0.05 px absolute, as the detector fixture test and for its reason;
   scores, labels and valid 1e-4); its graph calls ``mxdet::roi_align``
-  once and ``mxdet::nms_mask_sorted`` twice.
+  once, ``mxdet::nms_mask_sorted`` twice and ``mxdet::frozen_bn_act`` 49
+  times.
 - The shrunk Cascade R-CNN (R50 depth, DCN in stage 4, seeded offset
   convs) calls ``mxdet::deform_conv2d`` once per DCN layer, and the loaded
   artifact equals the eager port bit for bit.
@@ -263,15 +264,18 @@ def test_export_cli_on_the_cpu(artifacts):
 def test_exported_graphs_call_the_operators(artifacts):
     """Faster R-CNN: RoIAlign once, NMS twice (the RPN, the class-aware
     test NMS), as the loaded artifact's graph shows. Cascade: a deformable
-    conv per DCN layer, RoIAlign once per stage, NMS twice."""
+    conv per DCN layer, RoIAlign once per stage, NMS twice. Both (R50):
+    the FrozenBN epilogue 49 times, the stem's and three a block."""
     assert artifacts["loader"]["ops"]["faster"] == {"mxdet.roi_align.default": 1,
-                                                    "mxdet.nms_mask_sorted.default": 2}
+                                                    "mxdet.nms_mask_sorted.default": 2,
+                                                    "mxdet.frozen_bn_act.default": 49}
     assert artifacts["loader"]["ops"]["cascade"] == {"mxdet.deform_conv2d.default": 3,
                                                      "mxdet.roi_align.default": 3,
-                                                     "mxdet.nms_mask_sorted.default": 2}
+                                                     "mxdet.nms_mask_sorted.default": 2,
+                                                     "mxdet.frozen_bn_act.default": 49}
     assert artifacts["cascade_dcn_layers"] == 3
     assert op_counts(artifacts["cascade"]) == {"deform_conv2d": 3, "roi_align": 3,
-                                               "nms_mask_sorted": 2}
+                                               "nms_mask_sorted": 2, "frozen_bn_act": 49}
 
 
 def test_served_faster_matches_jax_serving_fn(artifacts):
