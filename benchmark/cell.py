@@ -3,7 +3,10 @@ check of what the window produced, and the result line.
 
 ``run`` is what ``benchmark/run.py`` calls after its look for the card; the
 CPU tests call it directly, at tiny sizes, with ``device="cpu"`` (and, to see
-``correct`` come out false, with the timed path broken underneath).
+``correct`` come out false, with the timed path broken underneath). What
+depends on the detector (its weights, what the reference follows, the
+check, the marks, the kernels' bounds and the FLOP count) comes from the
+cell's family module (``sp["family"]``, ``benchmark/families/<family>.py``).
 """
 
 from __future__ import annotations
@@ -19,14 +22,11 @@ import time
 import numpy as np
 import torch
 
-from . import check, flops, weights
+from . import check, weights
 from . import spec as spec_lib
-from .reference import detector as D
-from .reference import infer as RI
 from .traffic import Pool
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mxdetection_tpu")
-DET_KEYS = ("boxes", "scores", "labels", "valid")
 STEPS_PER_EPOCH = 7330  # COCO train2017's 117,266 images at 16 a step
 FOLLOWED_STEPS = 3      # the training steps the reference follows
 
@@ -161,16 +161,16 @@ def build_program(cfg, device, train: bool):
         return build_detector(cfg, device=device, train=train)
 
 
-def make_weights(conf: dict, pool: Pool, seed: int, device) -> dict:
-    """The seeded weights (f32, on the device), offsets calibrated."""
-    m = conf["model"]
-    W, gen = weights.make_weights(m, conf["weights"], seed, device)
-    n = conf["weights"].get("calibration_images", 1)
+def make_weights(fam, conf: dict, pool: Pool, seed: int, device) -> dict:
+    """The seeded weights of the detector family ``fam`` (f32, on the
+    device), offsets calibrated."""
+    m, recipe = conf["model"], conf["weights"]
+    specs = fam.param_specs(m)
+    W, gen = weights.make_weights(specs, fam.weight_laws(m), recipe, seed, device)
+    n = recipe.get("calibration_images", 1)
     raw, hw = pool.raw[:n].to(device), pool.hw[:n].to(device)
-    with D.float32_exact():
-        images, _, _ = D.transform(raw, hw, torch.zeros(n, dtype=torch.bool, device=device),
-                                   torch.zeros((n, 1, 4), device=device), m, RI.canvas(m))
-    weights.calibrate_offsets(W, m, conf["weights"], images, gen)
+    weights.calibrate_offsets(W, [name for name, _, kind in specs if kind == "offset"], recipe,
+                              lambda on_offset: fam.calibration_forward(W, m, raw, hw, on_offset), gen)
     return W
 
 
@@ -266,13 +266,13 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     from mxdetection_tpu_torch.tools.common import infer_batch
 
     entry = infer_batch if entry is None else entry
-    conf, t = sp["config"], sp["traffic"]
+    fam, conf, t = sp["family"], sp["config"], sp["traffic"]
     m = conf["model"]
     set_precision(conf)
     cfg = program_config(conf)
     pool = Pool(t, seed, device, pin=device.type == "cuda")
     model = build_program(cfg, device, train=False)
-    W = make_weights(conf, pool, seed, device)
+    W = make_weights(fam, conf, pool, seed, device)
     model.load_state_dict(W, strict=True)
     served = {k: v.dtype for k, v in model.state_dict().items()}
     W_ref = {k: W[k].to(served[k]).to("cpu", torch.float32, copy=True) for k in W}
@@ -280,12 +280,7 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     dtype = model.compute_dtype
     b, in_flight = t["batch"], t["in_flight"]
 
-    slot = [None]
-    stage_slot = {}
-    hooks_keep = [model.rpn.register_forward_hook(lambda mod, inp, out: slot.__setitem__(0, out))]
-    for j in range(model.num_stages - 1):
-        hooks_keep.append(model.bbox_head(j).register_forward_hook(
-            lambda mod, inp, out, j=j: stage_slot.__setitem__(j, out[1])))
+    keeper = fam.Keep(model)
     sampler = Reservoir(t["check_batches"], seed + 1)
     marks = slice_ = None
     facts = []
@@ -302,16 +297,11 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
         host_s = now() - t0
         if marks is not None:
             marks.end("postprocess")
-        host = {key: dets[key].to("cpu", non_blocking=device.type == "cuda") for key in DET_KEYS}
+        host = {key: dets[key].to("cpu", non_blocking=device.type == "cuda") for key in fam.DETECTIONS}
         ev = Event(device).record()
-        stages = [stage_slot[j].reshape(raw.shape[0], -1, 4) for j in sorted(stage_slot)]
-        keep = {"k": k, "rpn": out.get("rpn", slot[0]),
-                "stage_deltas": out.get("stage_deltas", stages),
-                **{key: out[key] for key in ("rois", "roi_valid", "probs", "deltas")}}
-        stage_slot.clear()
+        keep = {"k": k, **keeper.take(out, raw.shape[0])}
         if slice_ is not None and slice_.prof is not None:
-            facts.append({"rois": out["rois"], "roi_valid": out["roi_valid"]})
-        slot[0] = None
+            facts.append(fam.infer_facts(out))
         return {"t_submit": t_sub, "host_s": host_s, "ev": ev, "host": host, "keep": keep}
 
     done = []
@@ -339,11 +329,7 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
         torch.cuda.synchronize(device)
     if trace:
         marks = Marks(device)
-        n = model.num_stages
-        hooks = [model.backbone.register_forward_pre_hook(lambda *_: marks.mark("transform")),
-                 model.backbone.register_forward_hook(lambda *_: marks.mark("backbone")),
-                 model.bbox_head(0).register_forward_pre_hook(lambda *_: marks.mark("rpn")),
-                 model.bbox_head(n - 1).register_forward_hook(lambda *_: marks.mark("roi_heads"))]
+        hooks = fam.infer_marks(model, marks)
         slice_ = Slice(t["trace_items"], device)
 
     t_start = now()
@@ -371,19 +357,17 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
         while q:
             collect(q.popleft(), False)
         slice_.stop()
-    for h in hooks_keep:
-        h.remove()
+    keeper.remove()
 
-    rec = {"mode": "infer", "batch": b, "num_stages": D.num_stages(m), "setup_s": setup_s,
-           "window_s": window_s,
+    rec = {"mode": "infer", "batch": b, "setup_s": setup_s, "window_s": window_s,
            "items": [{"images": b, "latency_s": r["t_done"] - r["t_submit"], "host_s": r["host_s"]}
                      for r in done],
-           "flops_per_item": b * flops.model_flops(m, RI.canvas(m), m["rpn"]["post_nms_top_n_test"]),
+           "flops_per_item": fam.flops_per_item(m, b, train=False),
            "memory_peak_bytes": memory_peak(device)}
     if trace:
         rec["stages"] = spans
         rec["profile"] = slice_.summary
-        rec["profile"]["bounds"] = infer_bounds(m, facts, b)
+        rec["profile"]["bounds"] = fam.infer_bounds(m, facts, b)
     lat = sorted(r["t_done"] - r["t_submit"] for r in done)
     log(f"window: {len(done)} batches of {b} in {window_s:.3f} s, median latency "
         f"{lat[len(lat) // 2] * 1e3:.2f} ms; set-up {setup_s:.3f} s")
@@ -392,7 +376,7 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     rng = np.random.default_rng(seed + 2)
     for s in samples:
         s["images"] = sorted(rng.choice(b, size=min(b, t["check_images"]), replace=False).tolist())
-    del model, facts, done, q, slot
+    del model, facts, done, q, keeper
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -400,33 +384,13 @@ def run_infer(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     for s in samples:
         raw, hw = pool.infer_batch(s["k"])
         s["raw"], s["hw"] = raw.to(device), hw.to(device)
-        s["rpn_cls"], s["rpn_reg"] = s["rpn"]
     t0 = now()
-    with D.float32_exact():
-        numbers = check.judge_infer(W_dev, m, samples)
+    numbers = fam.judge_infer(W_dev, m, samples)
     log(f"check: {numbers['images_checked']} images of {len(samples)} batches, "
         f"{numbers['detections_checked']} detections, {now() - t0:.1f} s")
     for why in numbers["not_reproduced_why"]:
         log(f"check: not reproduced: {why}")
     return rec, numbers
-
-
-def infer_bounds(m: dict, facts: list, b: int) -> dict:
-    """Least seconds of K1 and of K5/K5b over the traced batches, counted
-    from their own rois and the configuration's shapes. A cascade's first
-    two stages are counted on the last stage's rois (the program returns
-    those alone)."""
-    canvas = RI.canvas(m)
-    levels = [(-(-canvas[0] // 2 ** lv), -(-canvas[1] // 2 ** lv)) for lv in range(2, 6)]
-    p, c, n = m["roi"]["output_size"], m["fpn"]["out_channels"], D.num_stages(m)
-    k1 = 0.0
-    for f in facts:
-        rois, valid = f["rois"].float(), f["roi_valid"]
-        touched = flops.touched_pixels(rois, valid, levels, m)
-        k1 += n * flops.roi_align_fwd_bound(rois.shape[0] * rois.shape[1], int(valid.sum()),
-                                            touched, p, c)
-    k5 = len(facts) * sum(flops.dcn_bound(b, h, w, ch, s) for h, w, ch, s in flops.dcn_layers(m, canvas))
-    return {"roi_align_fwd": k1, "dcn_fwd": k5, "items": len(facts)}
 
 
 # ---------------------------------------------------------------- training
@@ -439,13 +403,13 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     check of a training cell -> (records, checks)."""
     from mxdetection_tpu_torch.train.trainer import Trainer
 
-    conf, t = sp["config"], sp["traffic"]
+    fam, conf, t = sp["family"], sp["config"], sp["traffic"]
     m = conf["model"]
     set_precision(conf)
     cfg = program_config(conf)
     pool = Pool(t, seed, device, pin=device.type == "cuda")
     model = build_program(cfg, device, train=True)
-    W = make_weights(conf, pool, seed, device)
+    W = make_weights(fam, conf, pool, seed, device)
     model.load_state_dict(W, strict=True)
     names = [n for n, _ in model.named_parameters()]
     W_host = {k: v.to("cpu", copy=True) for k, v in W.items()}
@@ -454,35 +418,21 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     opt = trainer.optimizer
     step = trainer.run_step if step_fn is None else (lambda batch, draws: step_fn(trainer, batch, draws))
     draws = Draws(seed, device)
-    b, n_st = t["batch"], D.num_stages(m)
+    b = t["batch"]
     lo, hi = t["follow_window_steps"]
     j0 = int(np.random.default_rng(seed + 3).integers(lo, hi + 1))
 
     def clone(ts) -> dict:
         return {n: x.detach().clone() for n, x in zip(names, ts)}
 
-    cur = {}
-
-    def keep_rpn(mod, inp, out):
-        if draws.log is not None:
-            cur["rpn"] = tuple([x.detach() for x in o] for o in out)
-
-    def keep_deltas(i):
-        def hook(mod, inp, out):
-            if draws.log is not None:
-                cur.setdefault("deltas", {})[i] = out[1].detach()
-        return hook
+    follower = fam.Follow(model, m, b, lambda: draws.log is not None)
 
     def taken(k: int) -> dict:
         """What the step just run drew and chose, for the reference to follow."""
-        f = {"k": k, "draws": draws.log, "rpn": cur["rpn"],
-             "deltas": [cur["deltas"][i].reshape(b, -1, 4) for i in range(n_st - 1)]}
-        cur.clear()
+        f = {"k": k, "draws": draws.log, **follower.take()}
         draws.log = None
         return f
 
-    hooks = [model.rpn.register_forward_hook(keep_rpn)]
-    hooks += [model.bbox_head(i).register_forward_hook(keep_deltas(i)) for i in range(n_st)]
     setup_f = {"steps": [], "step0": 0, "trace0": None,
                "params0": {n: W_host[n] for n in names}}
     losses0 = []
@@ -499,7 +449,7 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
         torch.cuda.synchronize(device)
 
     marks = slice_ = None
-    dcn_facts = []
+    facts = []
     if trace:
         marks = Marks(device)
         loss_fn, opt_step = trainer.loss_fn, opt.step
@@ -516,10 +466,6 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
 
         trainer.loss_fn, opt.step = loss_marked, step_marked
         slice_ = Slice(t["trace_items"], device)
-
-        def capture(mod, inp, out):
-            dcn_facts.append((out.detach().permute(0, 2, 3, 1).float(), inp[0].shape[2],
-                              inp[0].shape[3], inp[0].shape[1], mod.stride[0]))
 
     # the window: steps back to back; from its step j0 the parameters and the
     # momentum are cloned on the device and three steps' draws and choices kept
@@ -554,36 +500,32 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     window_losses = torch.stack(losses).float().cpu()
     window_s = now() - t_start
     window_f["losses"] = window_losses[j0:j0 + FOLLOWED_STEPS].tolist()
-    for h in hooks:
-        h.remove()
+    follower.remove()
     if trace:  # the traced slice: further steps of the window's loop
         marks.cur = None
         trainer.loss_fn, opt.step = loss_fn, opt_step
         slice_.start()
         for j in range(slice_.n):
-            hooks = ([mm.offset_conv.register_forward_hook(capture) for mm in model.modules()
-                      if type(mm).__name__ == "DeformConv"] if j == 0 else [])
+            hooks = fam.train_facts(model, facts) if j == 0 else []
             step(dict(pool.train_batch(k)), draws)
             k += 1
             for h in hooks:
                 h.remove()
         slice_.stop()
 
-    rois_per_image = m["bbox_head"]["num_samples"]
-    rec = {"mode": "train", "batch": b, "num_stages": n_st, "setup_s": setup_s,
-           "window_s": window_s, "items": items,
-           "flops_per_item": 3 * b * flops.model_flops(m, RI.canvas(m), rois_per_image),
+    rec = {"mode": "train", "batch": b, "setup_s": setup_s, "window_s": window_s, "items": items,
+           "flops_per_item": fam.flops_per_item(m, b, train=True),
            "memory_peak_bytes": memory_peak(device),
            "failed": int((~torch.isfinite(window_losses)).sum())}
     if trace:
         rec["stages"] = marks.spans()
         rec["profile"] = slice_.summary
-        rec["profile"]["bounds"] = train_bounds(m, dcn_facts, b, slice_.n)
+        rec["profile"]["bounds"] = fam.train_bounds(m, facts, b, slice_.n)
     log(f"window: {len(items)} steps of {b} in {window_s:.3f} s, steps {j0}-{j0 + FOLLOWED_STEPS - 1} "
         f"of it followed; set-up {setup_s:.3f} s; losses {[round(x, 4) for x in setup_f['losses']]} "
         f"then {window_losses[:3].tolist()}..")
 
-    del trainer, model, opt, metrics, losses, dcn_facts
+    del trainer, model, opt, metrics, losses, facts
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -597,8 +539,7 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
     t0 = now()
     parts = {}
     for name, f in followings.items():
-        if any(x.shape[0] != b for st in f["steps"]
-               for x in [*st["rpn"][0], *st["rpn"][1], *st["deltas"]]):
+        if not all(fam.whole_batch(st, b) for st in f["steps"]):
             log(f"check: the program's {name} steps did not run on the whole batch")
             parts[name] = check.not_followed(f["losses"])
             continue
@@ -606,7 +547,7 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
         f["steps"] = [{**st, "batch": {key: (v.to(device) if isinstance(v, torch.Tensor) else v)
                                        for key, v in pool.train_batch(st["k"]).items()}}
                       for st in f["steps"]]
-        f["ref"] = check.judge_train(m, f["params0"], buffers, f["steps"], trace0=f["trace0"],
+        f["ref"] = check.judge_train(fam, m, f["params0"], buffers, f["steps"], trace0=f["trace0"],
                                      step0=f["step0"], steps_per_epoch=STEPS_PER_EPOCH)
         prog = {"losses": f["losses"],
                 "g1": check.program_g1(on_dev(f["trace1"]), f["params0"], o, f["trace0"]),
@@ -621,19 +562,6 @@ def run_train(sp: dict, seed: int, seconds: float, trace: bool, device, proc_sta
             f"{p['worst_grad_leaf']}, {p['worst_update_leaf']}" for name, p in parts.items())
         + f"; {numbers['leaves_counted']} of {numbers['leaves']} leaves counted")
     return rec, numbers
-
-
-def train_bounds(m: dict, dcn_facts: list, b: int, steps: int) -> dict:
-    """Least seconds of K3 and of K6/K6b + K7/K7b over the traced steps: K3
-    from the sampled rois (every roi of every stage) and the pyramid's
-    shape, the DCN backward from the offsets of the slice's first step."""
-    canvas = RI.canvas(m)
-    pixels = sum(-(-canvas[0] // 2 ** lv) * -(-canvas[1] // 2 ** lv) for lv in range(2, 6))
-    p, c = m["roi"]["output_size"], m["fpn"]["out_channels"]
-    n_rois = b * m["bbox_head"]["num_samples"]
-    k3 = steps * D.num_stages(m) * flops.roi_align_bwd_bound(n_rois, b * pixels, p, c)
-    dcn = steps * sum(flops.dcn_bwd_bound(off, h, w, ch, s) for off, h, w, ch, s in dcn_facts)
-    return {"roi_align_bwd": k3, "dcn_bwd": dcn, "items": steps}
 
 
 # ---------------------------------------------------------------- the run

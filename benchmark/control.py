@@ -6,11 +6,12 @@ the cell's own size, in one process:
 
 - the program's numbers on ``--seeds`` seeds (each a whole run of the cell
   at a short window: set-up, window, check), the lower readings;
-- the control's on ``--control-seeds`` seeds: the reference put in the
-  program's place and computed with float8 e4m3 operands, one step below
-  the configuration's bfloat16 (inference: the whole batch by the
-  reference; training: the two followings of three steps, the set-up's
-  and the window's);
+- the control's on ``--control-seeds`` seeds: the cell's family's
+  reference put in the program's place and computed in its ``CONTROL``
+  precision (float8 e4m3 operands, one step below the configuration's
+  bfloat16; inference: the whole batch by the family's ``detect``;
+  training: the two followings of three steps, the set-up's and the
+  window's);
 - training only, the fault "half of the batch left out, the mean taken over
   the rest": the f32 reference in the program's place over the first half
   of each batch.
@@ -33,15 +34,11 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def control_entry(prec):
-    """An ``infer_batch`` stand-in: the reference computes the batch in
-    ``prec`` from the weights the program was given."""
+def control_entry(fam):
+    """An ``infer_batch`` stand-in: the detector family ``fam``'s reference
+    computes the batch in its ``CONTROL`` precision from the weights the
+    program was given."""
     import dataclasses
-
-    import torch
-
-    from benchmark.reference import detector as D
-    from benchmark.reference import infer as RI
 
     cache = {}
 
@@ -49,10 +46,7 @@ def control_entry(prec):
         if "W" not in cache:
             cache["W"] = {k: v.float() for k, v in model.state_dict().items()}
             cache["m"] = json.loads(json.dumps(dataclasses.asdict(cfg)))
-        with D.float32_exact(), torch.no_grad():
-            dets, out, rpn = RI.detect(cache["W"], cache["m"], raw, hw, prec)
-        out["rpn"] = rpn
-        return dets, out
+        return fam.detect(cache["W"], cache["m"], raw, hw, fam.CONTROL)
 
     return entry
 
@@ -71,9 +65,9 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import cell, check, spec
-    from benchmark.reference import detector as D
 
     sp = spec.cell(args.workload)
+    fam = sp["family"]
     mode = sp["traffic"]["mode"]
     lines = []
 
@@ -90,22 +84,22 @@ def main(argv=None) -> int:
         cell.run(sp, seed, args.seconds, False, args.device, t0, extra=extra)
         emit("program", seed, extra["numbers"], t0)
         if mode == "train" and n < args.control_seeds:
-            for kind, prec, images in (("control_fp8", D.FP8, None),
-                                       ("fault_half_batch", D.F32, range(sp["traffic"]["batch"] // 2))):
+            for kind, prec, images in (("control_fp8", fam.CONTROL, None),
+                                       ("fault_half_batch", fam.F32, range(sp["traffic"]["batch"] // 2))):
                 t0 = time.perf_counter()
-                nums = check.judge_followings(sp["config"]["model"], extra, prec, images,
+                nums = check.judge_followings(fam, sp["config"]["model"], extra, prec, images,
                                               steps_per_epoch=cell.STEPS_PER_EPOCH)
                 emit(kind, seed, nums, t0)
         extra.clear()
         torch.cuda.empty_cache()
     if mode == "infer":
-        csp = copy.deepcopy(sp)
+        csp = copy.deepcopy(sp, {id(fam): fam})
         csp["traffic"].update(warmup_batches=0, min_batches=sp["traffic"]["check_batches"])
         for n in range(args.control_seeds):
             seed = args.first_seed + n
             t0 = time.perf_counter()
             extra = {}
-            cell.run(csp, seed, 0.0, False, args.device, t0, extra=extra, entry=control_entry(D.FP8))
+            cell.run(csp, seed, 0.0, False, args.device, t0, extra=extra, entry=control_entry(fam))
             emit("control_fp8", seed, extra["numbers"], t0)
             torch.cuda.empty_cache()
     if args.out:

@@ -1,7 +1,8 @@
 """The yardstick's arithmetic: the card's published peaks, the least time of
 a piece of work (``bound``), the bytes and operations of the kernels whose
-roofline share the benchmark reports, and the model FLOPs of a batch or a
-step for ``*_mfu``. Every count is made from the run's own problems
+roofline share the benchmark reports, and the model FLOPs of a ResNet body
+for ``*_mfu`` (a family module, ``benchmark/families/<family>.py``, adds its
+neck and heads). Every count is made from the run's own problems
 (shapes, rois, offsets), never from what implements them.
 
 Origins: ``bound``, ``roi_flops``, ``dcn_bound`` and ``dcn_bwd_bound`` are
@@ -126,13 +127,11 @@ def conv_flops(cin: int, cout: int, k: int, ho: int, wo: int) -> float:
     return 2.0 * cin * cout * k * k * ho * wo
 
 
-def model_flops(m: dict, canvas: tuple, rois_per_image: int) -> float:
-    """Model FLOPs (a multiply-add counted as 2) of one image's forward pass
-    at ``canvas`` (H, W): every conv of the backbone (a deformable layer as
-    its 3x3 product, its offset conv beside it), the FPN, the RPN head on
-    P2-P6, and each R-CNN stage's two fc layers and predictors over
-    ``rois_per_image`` rois. Elementwise work, RoIAlign, NMS and the
-    deformable sampling are not counted."""
+def resnet_flops(m: dict, canvas: tuple) -> tuple:
+    """Model FLOPs (a multiply-add counted as 2) of the ResNet body of one
+    image's forward pass at ``canvas`` (H, W): the stem and every conv of
+    every block (a deformable layer as its 3x3 product, its offset conv
+    beside it) -> (FLOPs, [(H, W) of C2-C5])."""
     H, W = canvas
     h, w = -(-H // 2), -(-W // 2)
     f = conv_flops(3, 64, 7, h, w)
@@ -152,20 +151,7 @@ def model_flops(m: dict, canvas: tuple, rois_per_image: int) -> float:
                 f += conv_flops(cin, 4 * width, 1, ho, wo)
             cin, h, w = 4 * width, ho, wo
         sizes.append((h, w))
-    c = m["fpn"]["out_channels"]
-    for lv in range(2, 6):
-        fh, fw = sizes[lv - 2]
-        f += conv_flops(FPN_IN[lv - 2], c, 1, fh, fw) + conv_flops(c, c, 3, fh, fw)
-    a = len(m["rpn"]["anchor"]["scales"]) * len(m["rpn"]["anchor"]["ratios"])
-    for s in m["rpn"]["anchor"]["strides"]:
-        fh, fw = -(-H // s), -(-W // s)
-        f += conv_flops(c, c, 3, fh, fw) + conv_flops(c, 5 * a, 1, fh, fw)
-    p, fc, k = m["roi"]["output_size"], m["bbox_head"]["fc_channels"], m["bbox_head"]["num_classes"]
-    agnostic = bool(m.get("cascade")) or m["bbox_head"]["class_agnostic"]
-    nb = 4 if agnostic else 4 * (k + 1)
-    stages = m["cascade"]["num_stages"] if m.get("cascade") else 1
-    f += stages * rois_per_image * 2.0 * (p * p * c * fc + fc * fc + fc * (k + 1 + nb))
-    return f
+    return f, sizes
 
 
 def touched_pixels(rois: torch.Tensor, valid: torch.Tensor, level_hw: list, m: dict) -> int:

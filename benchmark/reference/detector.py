@@ -668,6 +668,8 @@ def smooth_l1(pred, target, beta):
 
 
 def warmup_multistep(o: dict, steps_per_epoch: int):
+    """The learning rate by step, in float32 as the program's schedule:
+    linear warm-up from ``warmup_ratio``, then a decay by epochs."""
     f32 = np.float32
     decay = tuple(int(e * steps_per_epoch) for e in o["lr_decay_epochs"])
 

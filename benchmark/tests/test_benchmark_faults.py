@@ -11,9 +11,8 @@ import time
 import pytest
 import torch
 
-from benchmark import cell, check
+from benchmark import cell, check, spec
 from benchmark.control import control_entry
-from benchmark.reference import detector as D
 from benchmark.tests.tiny import tiny_cell
 
 SEED = 2 ** 31 + 77
@@ -157,7 +156,7 @@ def test_inference_control_reads_three_times_the_program(name):
     sp["traffic"].update(warmup_batches=0, min_batches=sp["traffic"]["check_batches"])
     prog = cell.run(sp, SEED, 0.0, False, "cpu", time.perf_counter())["checks"]
     ctrl = cell.run(sp, SEED, 0.0, False, "cpu", time.perf_counter(),
-                    entry=control_entry(D.FP8))["checks"]
+                    entry=control_entry(sp["family"]))["checks"]
     assert any(ctrl[k]["value"] >= 3 * prog[k]["value"] for k in prog), (prog, ctrl)
 
 
@@ -166,7 +165,8 @@ def test_training_control_reads_three_times_the_program(name):
     extra = {}
     prog = cell.run(tiny_cell(name), SEED, 0.0, False, "cpu", time.perf_counter(),
                     extra=extra)["checks"]
-    ctrl = check.judge_followings(tiny_cell(name)["config"]["model"], extra, D.FP8,
+    sp = tiny_cell(name)
+    ctrl = check.judge_followings(sp["family"], sp["config"]["model"], extra, sp["family"].CONTROL,
                                   steps_per_epoch=cell.STEPS_PER_EPOCH)
     assert any(ctrl[k] >= 3 * prog[k]["value"] for k in prog), (prog, ctrl)
 
@@ -191,8 +191,8 @@ def test_greedy_sources_holds_nms_to_its_guarantees(shift, keeps_both, holds):
     n = 2 if keeps_both else 1
     got = {"boxes": rois[0, :n], "scores": probs[0, :n, 3], "labels": torch.full((n,), 2),
            "valid": torch.ones(n, dtype=torch.bool)}
-    src, why = check.greedy_sources(rois, torch.ones(1, 2, dtype=torch.bool), probs, deltas, info,
-                                    got, m)
+    src, why = spec.family("rcnn").greedy_sources(rois, torch.ones(1, 2, dtype=torch.bool), probs,
+                                                  deltas, info, got, m)
     assert (why is None) == holds, why
     if holds:
         assert src.tolist() == [2, k + 2][:n]

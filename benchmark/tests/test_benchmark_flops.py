@@ -65,13 +65,17 @@ def test_touched_pixels_of_one_roi():
     assert flops.touched_pixels(rois, torch.zeros((1, 1), dtype=torch.bool), levels, m) == 0
 
 
+def conf_of(config: str) -> dict:
+    return spec.load_json(os.path.join(spec.HERE, "configs", f"{config}.json"))
+
+
 def tiny_model(config: str):
     from mxdetection_tpu_torch.config import load_config
     from mxdetection_tpu_torch.models.registry import build_detector
 
     from benchmark.tests.tiny import TINY
 
-    conf = spec.load_json(os.path.join(spec.HERE, "configs", f"{config}.json"))
+    conf = conf_of(config)
     cfg = load_config(conf["zoo"], {**conf["overrides"], **TINY, "backbone.dtype": "float32"})
     m = json.loads(json.dumps(__import__("dataclasses").asdict(cfg)))
     return build_detector(cfg, device="cpu", seed=0), cfg, m
@@ -95,5 +99,6 @@ def test_model_flops_equal_torch_flop_counter(config):
     dcn = sum(flops.conv_flops(c, c, 3, -(-h // s), -(-w // s))
               for h, w, c, s in flops.dcn_layers(m, hw))
     assert (dcn > 0) == (config == "cascade_r101_dcn")
-    assert counter.get_total_flops() + dcn == pytest.approx(flops.model_flops(m, hw, rois), rel=1e-9)
-    assert math.isfinite(flops.model_flops(m, (832, 1344), 1000))
+    fam = spec.family(conf_of(config)["family"])
+    assert counter.get_total_flops() + dcn == pytest.approx(fam.model_flops(m, hw, rois), rel=1e-9)
+    assert math.isfinite(fam.model_flops(m, (832, 1344), 1000))

@@ -71,7 +71,7 @@ def program(name: str, seed: int = 3):
     pool = cell.Pool(t, seed, torch.device("cpu"), pin=False)
     train = t["mode"] == "train"
     model = cell.build_program(cfg, torch.device("cpu"), train=train)
-    W = cell.make_weights(conf, pool, seed, torch.device("cpu"))
+    W = cell.make_weights(sp["family"], conf, pool, seed, torch.device("cpu"))
     model.load_state_dict(W, strict=True)
     return sp, cfg, pool, model, W
 

@@ -1,10 +1,12 @@
-"""Discovery of cells, configurations, traffic and metrics from files, and
-the contract's limits on ``BENCHMARK.json``."""
+"""Discovery of cells, configurations, traffic, metrics and detector
+families from files, and the contract's limits on ``BENCHMARK.json``."""
 
+import filecmp
 import json
 import os
 import re
 import shutil
+import time
 
 import pytest
 import torch
@@ -91,16 +93,37 @@ def test_config_files_are_the_programs_configs():
 
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_weight_names_and_shapes_are_the_programs(config):
-    from mxdetection_tpu_torch.config import load_config
-    from mxdetection_tpu_torch.models.detectors.rcnn import RCNN
-
-    from benchmark.reference.detector import param_specs
+    from benchmark.cell import build_program, program_config
 
     conf = spec.load_json(os.path.join(spec.ROOT, f"benchmark/configs/{config}.json"))
-    with torch.device("meta"):
-        model = RCNN(load_config(conf["zoo"], conf["overrides"]))
+    model = build_program(program_config(conf), torch.device("meta"), train=True)
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert {n: tuple(s) for n, s, _ in param_specs(conf["model"])} == want
+    specs = spec.family(conf["family"]).param_specs(conf["model"])
+    assert {n: tuple(s) for n, s, _ in specs} == want
+
+
+FAMILIES = sorted(f[:-3] for f in os.listdir(os.path.join(spec.HERE, "families")) if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_gives_the_whole_interface(family):
+    fam = spec.family(family)  # raises where a name of spec.FAMILY is missing
+    for name in spec.FAMILY:
+        value = getattr(fam, name)
+        assert not callable(value) or value.__doc__, f"{family}.{name} has no docstring"
+    for c in BENCH["configs"]:
+        conf = spec.load_json(os.path.join(spec.ROOT, c["file"]))
+        if conf["family"] == family:
+            laws = fam.weight_laws(conf["model"])
+            assert set(laws) <= {kind for _, _, kind in fam.param_specs(conf["model"])}
+            assert {law for law, _ in laws.values()} <= {"he_normal", "xavier_uniform", "normal",
+                                                         "constant"}
+
+
+def test_every_config_names_a_family():
+    for c in BENCH["configs"]:
+        conf = spec.load_json(os.path.join(spec.ROOT, c["file"]))
+        assert conf["family"] in FAMILIES
 
 
 def test_a_cell_added_as_files_only(tmp_path):
@@ -132,3 +155,91 @@ def test_a_cell_added_as_files_only(tmp_path):
     assert [x["name"] for x in sp["per_layer"]] == ["batches_in_window"]
     assert "infer_images_per_s" in [x["name"] for x in sp["end_to_end"]]
     assert spec.reader("batches_in_window", root=str(root))({"items": [1, 2, 3]}) == 3.0
+
+
+PROBE = '''"""A family that wraps ``rcnn`` and records each call by its name."""
+import os
+
+from benchmark import spec
+
+_RCNN = spec.family("rcnn", os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+CALLS = []
+
+
+def _recorded(name, f):
+    def call(*args, **kwargs):
+        CALLS.append(name)
+        return f(*args, **kwargs)
+    call.__doc__ = f.__doc__
+    return call
+
+
+for _name in spec.FAMILY:
+    _value = getattr(_RCNN, _name)
+    globals()[_name] = _recorded(_name, _value) if callable(_value) else _value
+'''
+
+
+def checkout_with_a_new_family(root, family: str) -> dict:
+    """A copy of the harness with a configuration of ``family`` (Faster
+    R-CNN's file with its ``"family"`` changed) and a cell of it under each
+    of the Faster cells' traffic and limits, by new files and new entries
+    only -> the BENCHMARK.json written there."""
+    shutil.copytree(os.path.join(spec.ROOT, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads(json.dumps(BENCH))
+    conf = spec.load_json(os.path.join(spec.HERE, "configs", "faster_r50_fpn.json"))
+    conf.update(name=f"{family}_faster", family=family)
+    (root / "benchmark" / "configs" / f"{family}_faster.json").write_text(json.dumps(conf))
+    bench["configs"].append({"name": f"{family}_faster", "source": conf["source"],
+                             "file": f"benchmark/configs/{family}_faster.json",
+                             "reduced": conf["reduced"], "why": "a later detector family"})
+    for traffic in ("infer_b32", "train_b8"):
+        cell = f"{family}_faster.{traffic}"
+        w = spec.load_json(os.path.join(spec.HERE, "workloads", f"faster_r50_fpn.{traffic}.json"))
+        w.update(config=f"{family}_faster")
+        (root / "benchmark" / "workloads" / f"{cell}.json").write_text(json.dumps(w))
+        bench["workloads"].append({"name": cell, "config": f"{family}_faster", "traffic": traffic,
+                                   "chips": 1, "why": "a later detector family"})
+        for x in bench["end_to_end"]:
+            if f"faster_r50_fpn.{traffic}" in x.get("workloads", []):
+                x["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench
+
+
+@pytest.mark.parametrize("traffic", ["infer_b32", "train_b8"])
+def test_a_family_added_as_files_only(tmp_path, traffic):
+    """A later PR adds a detector family by a module, a configuration that
+    names it, a workload and entries; a run of its cell reads ``correct``
+    through the family's functions, and no file of the harness changes."""
+    from benchmark import cell
+    from benchmark.tests.tiny import tiny_cell
+
+    root = tmp_path / "checkout"
+    checkout_with_a_new_family(root, "probe")
+    (root / "benchmark" / "families" / "probe.py").write_text(PROBE)
+    sp = tiny_cell(f"probe_faster.{traffic}", root=str(root))
+    fam = sp["family"]
+    assert fam.__file__ == str(root / "benchmark" / "families" / "probe.py")
+    out = cell.run(sp, 2 ** 31 + 77, 0.5, False, "cpu", time.perf_counter())
+    assert out["correct"], out["checks"]
+    assert set(out["checks"]) == set(sp["workload"]["limits"])
+    used = {"param_specs", "weight_laws", "flops_per_item"}
+    used |= ({"Keep", "judge_infer"} if traffic == "infer_b32" else
+             {"Follow", "whole_batch", "train_step", "warmup_multistep", "sgd_step"})
+    assert used <= set(fam.CALLS), fam.CALLS
+    cmp = filecmp.dircmp(os.path.join(spec.ROOT, "benchmark"), str(root / "benchmark"),
+                         ignore=["__pycache__"])
+
+    def changed(d):
+        return d.diff_files + d.left_only + [f for sub in d.subdirs.values() for f in changed(sub)]
+    assert changed(cmp) == []
+
+
+def test_an_unknown_family_fails_naming_its_file(tmp_path):
+    root = tmp_path / "checkout"
+    checkout_with_a_new_family(root, "nowhere")
+    with pytest.raises(FileNotFoundError, match=re.escape(
+            os.path.join(str(root), "benchmark", "families", "nowhere.py"))):
+        spec.cell("nowhere_faster.train_b8", root=str(root))

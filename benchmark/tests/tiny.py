@@ -2,8 +2,9 @@
 files, with the canvas, the proposal and sample counts and the pool shrunk
 (the widths stay as published). A cell whose files are kept under
 ``benchmark/workloads`` without an entry in ``BENCHMARK.json`` (Cascade
-inference, out of the benchmark for its host-paced spread) is tested with
-the entry its workload file gives."""
+inference and Faster training, out of the benchmark for their host-paced
+spreads) is tested with the entry its workload file gives and the metrics
+that the benchmark's cells of its mode report."""
 
 from __future__ import annotations
 
@@ -20,14 +21,25 @@ TINY = {"data.pad_h": 128, "data.pad_w": 160, "data.scale": 120, "data.max_size"
         "bbox_head.num_samples": 32, "data.max_gt": 8}
 
 
-def tiny_cell(name: str, pool: int = 8, batch: int = 2, dtype: str | None = None) -> dict:
+def traffic_mode(root: str, traffic: str) -> str:
+    return spec.load_json(os.path.join(root, "benchmark", "traffic", f"{traffic}.json"))["mode"]
+
+
+def tiny_cell(name: str, pool: int = 8, batch: int = 2, dtype: str | None = None,
+              root: str = spec.ROOT) -> dict:
     from mxdetection_tpu_torch.config import load_config
 
-    bench = spec.benchmark()
+    bench = spec.benchmark(root)
     if name not in [w["name"] for w in bench["workloads"]]:
-        w = spec.load_json(os.path.join(spec.HERE, "workloads", f"{name}.json"))
+        w = spec.load_json(os.path.join(root, "benchmark", "workloads", f"{name}.json"))
+        mode = traffic_mode(root, w["traffic"])
+        same = {x["name"] for x in bench["workloads"] if traffic_mode(root, x["traffic"]) == mode}
+        for x in bench["end_to_end"] + bench["per_layer"]:
+            if same & set(x.get("workloads", ())):
+                x["workloads"].append(name)
         bench["workloads"].append({"name": name, **{k: w[k] for k in ("config", "traffic", "chips", "why")}})
-    sp = copy.deepcopy(spec.cell(name, bench=bench))
+    full = spec.cell(name, root, bench=bench)
+    sp = copy.deepcopy(full, {id(full["family"]): full["family"]})
     conf = sp["config"]
     conf["overrides"] = {**conf["overrides"], **TINY}
     if dtype is not None:

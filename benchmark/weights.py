@@ -19,7 +19,10 @@ that make seeded weights exercise what trained ones do:
   ::seed_offset_convs``, on the reference instead of the program).
 
 Every draw comes from one ``torch.Generator`` on the card, a few large
-calls a run: one a kind, sliced leaf by leaf.
+calls a run: one a kind, sliced leaf by leaf. The names, shapes and kinds,
+and each kind's law, are the detector family's (``param_specs``,
+``weight_laws`` of ``benchmark/families/<family>.py``); a kind ``offset``
+stays zero until ``calibrate_offsets``.
 """
 
 from __future__ import annotations
@@ -27,8 +30,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from .reference import detector as D
 
 TRUNC = 2.0  # the he normal's truncation, in stds
 
@@ -47,10 +48,13 @@ def _fans(shape) -> tuple:
     return shape[1] * rf, shape[0] * rf
 
 
-def make_weights(m: dict, recipe: dict, seed: int, device) -> tuple:
-    """-> ({name: f32 tensor on ``device``}, the generator, left where the
+def make_weights(specs: list, laws: dict, recipe: dict, seed: int, device) -> tuple:
+    """The weights of ``specs`` ([(name, shape, init kind)], a family's
+    ``param_specs``), each kind drawn by its law in ``laws`` (a family's
+    ``weight_laws``: ``he_normal``, ``xavier_uniform``, ``normal`` with the
+    std under the recipe's key, ``constant``; a kind without a law is zero)
+    -> ({name: f32 tensor on ``device``}, the generator, left where the
     offset noise is drawn next)."""
-    specs = D.param_specs(m)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
     out = {}
@@ -58,33 +62,33 @@ def make_weights(m: dict, recipe: dict, seed: int, device) -> tuple:
     by_kind: dict = {}
     for name, shape, kind in specs:
         by_kind.setdefault(kind, []).append((name, shape))
-    n_blocks = len(D.blocks(m))
     for kind in sorted(by_kind):
         items = by_kind[kind]
+        law, arg = laws.get(kind, ("zero", None))
         total = sum(math.prod(s) for _, s in items)
-        if kind == "conv":
+        if law == "he_normal":
             flat = _trunc_normal(total, gen, device)
-        elif kind in ("fpn", "fc"):
+        elif law == "xavier_uniform":
             flat = torch.rand(total, generator=gen, device=device) * 2 - 1
-        elif kind in ("rpn", "cls", "bbox"):
+        elif law == "normal":
             flat = torch.randn(total, generator=gen, device=device)
-        else:
+        elif law in ("constant", "zero"):
             flat = None
+        else:
+            raise ValueError(f"init kind {kind!r}: unknown law {law!r}")
         i = 0
         for name, shape in items:
             n = math.prod(shape)
-            if kind == "conv":
+            if law == "he_normal":
                 t = flat[i:i + n] * (math.sqrt(2.0 / _fans(shape)[0]) / 0.87962566103423978)
-            elif kind in ("fpn", "fc"):
+            elif law == "xavier_uniform":
                 fi, fo = _fans(shape)
                 t = flat[i:i + n] * math.sqrt(6.0 / (fi + fo))
-            elif kind in ("rpn", "cls", "bbox"):
-                t = flat[i:i + n] * recipe[f"{kind}_std"]
-            elif kind == "bn_gamma_last":
-                t = torch.full((n,), n_blocks ** -0.5, device=device)
-            elif kind in ("bn_gamma", "bn_var"):
-                t = torch.ones(n, device=device)
-            else:  # biases, betas, means, and the offset convs until calibrated
+            elif law == "normal":
+                t = flat[i:i + n] * recipe[arg]
+            elif law == "constant":
+                t = torch.full((n,), arg, device=device)
+            else:
                 t = torch.zeros(n, device=device)
             out[name] = t.reshape(shape).contiguous()
             i += n
@@ -92,24 +96,23 @@ def make_weights(m: dict, recipe: dict, seed: int, device) -> tuple:
 
 
 @torch.no_grad()
-def calibrate_offsets(W: dict, m: dict, recipe: dict, images: torch.Tensor,
-                      gen: torch.Generator) -> None:
-    """Set every offset conv's weight (zero until now) from one f32 forward
-    pass of the reference over ``images`` (B, H, W, 3), normalised."""
-    names = [n for n, _, k in D.param_specs(m) if k == "offset"]
+def calibrate_offsets(W: dict, names: list, recipe: dict, forward, gen: torch.Generator) -> None:
+    """Set every offset conv's weight of ``names`` (zero until now) from one
+    f32 forward pass of the reference, ``forward(on_offset)`` (a family's
+    ``calibration_forward``), which calls ``on_offset(name, x)`` with each
+    offset conv's weight name and its layer's input."""
     if not names:
         return
     total = sum(W[n].numel() for n in names)
-    noise = torch.randn(total, generator=gen, device=images.device)
+    noise = torch.randn(total, generator=gen, device=W[names[0]].device)
     pos = {"i": 0}
 
-    def on_dcn(prefix, x):
-        w = W[f"{prefix}.conv2.offset_conv.weight"]
+    def on_offset(name, x):
+        w = W[name]
         rms = x.float().pow(2).mean().sqrt()
         n = w.numel()
         w.copy_(noise[pos["i"]:pos["i"] + n].reshape(w.shape)
                 * (recipe["offset_std_cells"] / (rms * math.sqrt(9 * w.shape[1]))))
         pos["i"] += n
 
-    with D.float32_exact():
-        D.backbone(images, W, m, D.F32, on_dcn=on_dcn)
+    forward(on_offset)
